@@ -1,0 +1,27 @@
+"""PyTorch + CUDA port of deblur4dgs_tpu for NVIDIA Hopper GPUs.
+
+Mirrors the JAX package module for module (``deblur4dgs_tpu_torch/ops/
+rasterize.py`` <-> ``deblur4dgs_tpu/ops/rasterize.py``). The Pallas TPU
+kernels become hand-written CUDA kernels (``csrc/``) wrapped in
+``torch.autograd.Function``s; every kernel keeps a plain PyTorch twin that
+runs on CPU tensors. This package never imports JAX or ``deblur4dgs_tpu``.
+
+Ported so far: the dynamic blur-window training step (see ROADMAP.md).
+"""
+
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for an entry point; CUDA asked for but absent raises.
+
+    Entry points default to ``"cuda"``; they never fall back to the CPU
+    silently — the CPU is only used when the caller asks for it.
+    """
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' explicitly to run the plain versions"
+        )
+    return dev

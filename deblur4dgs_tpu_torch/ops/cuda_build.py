@@ -1,0 +1,113 @@
+"""Build and load the port's CUDA kernels (csrc/*.cu) with nvcc + ctypes.
+
+No counterpart in the JAX package. On first use, every ``csrc/*.cu`` file is
+compiled for Hopper (``sm_90a``) into one shared library with a plain C
+interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o build/kernels/libd4gs_kernels.so csrc/*.cu
+
+The library lands in ``build/kernels/`` at the repository root (listed in
+.gitignore) next to a stamp holding the sources' hash; it is rebuilt when
+any source changes. Only the CUDA branches of the wrappers import this
+module, so CPU runs never look for nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
+LIB_NAME = "libd4gs_kernels.so"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+_lib = None
+# What the last build in this process did: {"built": bool, "seconds": float,
+# "log": nvcc's output}; chip_smoke.py prints it.
+BUILD_INFO: dict = {}
+
+
+def _sources() -> list[Path]:
+    srcs = sorted(CSRC_DIR.glob("*.cu"))
+    if not srcs:
+        raise FileNotFoundError(f"no CUDA sources under {CSRC_DIR}")
+    return srcs
+
+
+def _hash(srcs: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(ARCH_FLAGS).encode())
+    for src in srcs:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if cuda_home and (Path(cuda_home) / "bin" / "nvcc").exists():
+        return str(Path(cuda_home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise FileNotFoundError("nvcc not found (set CUDA_HOME or put it on PATH)")
+
+
+def build(verbose_ptxas: bool = False) -> Path:
+    """Compile csrc/*.cu into BUILD_DIR/LIB_NAME unless the stamp matches."""
+    srcs = _sources()
+    digest = _hash(srcs)
+    lib_path = BUILD_DIR / LIB_NAME
+    stamp = BUILD_DIR / (LIB_NAME + ".sha256")
+    if lib_path.exists() and stamp.exists() and stamp.read_text() == digest:
+        BUILD_INFO.update(built=False, seconds=0.0, log="")
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-o", str(tmp), *map(str, srcs)]
+    if verbose_ptxas:
+        cmd[1:1] = ["-Xptxas", "-v"]
+    t0 = time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, lib_path)
+    stamp.write_text(digest)
+    BUILD_INFO.update(built=True, seconds=time.time() - t0,
+                      log=proc.stdout + proc.stderr)
+    return lib_path
+
+
+def load(verbose_ptxas: bool = False):
+    """The ctypes handle of the kernel library (built on first use)."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(str(build(verbose_ptxas)))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.d4gs_window_fwd.argtypes = [vp] * 6 + [i] * 8 + [vp]
+    lib.d4gs_window_fwd.restype = i
+    lib.d4gs_window_bwd.argtypes = [vp] * 10 + [i] * 8 + [vp]
+    lib.d4gs_window_bwd.restype = i
+    lib.d4gs_error_string.argtypes = [i]
+    lib.d4gs_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
+
+
+def error_string(err: int) -> str:
+    return f"{err} ({load().d4gs_error_string(err).decode()})"

@@ -1,0 +1,495 @@
+"""Exposure-window tile compositor: CUDA kernels + their plain PyTorch twins.
+
+PyTorch port of the window path of deblur4dgs_tpu/ops/rasterize.py. One
+bucket row is image tile ``tile_ids[t]`` (16x16 = P pixels, centres at
++0.5) with ``counts[t]`` depth-ordered Gaussians, composited front to back
+for each of the S exposure sub-frames:
+
+    alpha = min(op * exp(-sigma), 0.999)   where the pixel is inside the
+            3-sigma box, sigma >= 0 and op * exp(-sigma) >= 1/255, else 0
+    sigma = 0.5 * (a dx^2 + c dy^2) + b dx dy
+    accum += alpha * T * channels;  T *= (1 - alpha)
+
+The backward recomputes alpha and T in forward order and takes suffix sums
+as Total - prefix from the forward outputs (accum, tfin): no per-Gaussian
+residuals are stored and nothing is divided by a small T.
+
+Early-stop rule (shared by the CUDA kernels and the plain twins): the
+Gaussians are walked in chunks of CHUNK = 128; before each chunk, the
+(bucket row, sub-frame) pair stops if every one of its P pixels has
+T < EARLY_STOP_T. Forward and backward therefore stop at the same chunk
+for each (row, s). The reference's fused forward K1 and S-split backward
+K3 stop the whole window at once (all sub-frames below the threshold);
+the two rules differ only by contributions of a sub-frame after its own
+T fell below 1e-4, i.e. less than 1e-4 of a channel unit per pixel.
+
+On CUDA tensors ``composite_tiles_window`` launches the kernels in
+csrc/window_composite.cu (built by ops/cuda_build.py) or raises; on CPU
+tensors it runs the twins ``composite_window_plain`` /
+``composite_window_bwd_plain``. There is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from deblur4dgs_tpu_torch.ops.tiling import TILE, num_tiles
+
+ALPHA_CLAMP = 0.999
+ALPHA_CUTOFF = 1.0 / 255.0
+# Chunk-level early termination threshold (gsplat's per-pixel forward
+# early stop uses 1e-4; dropped contributions are < 1e-4 of a color unit).
+EARLY_STOP_T = 1e-4
+CHUNK = 128  # Gaussians per chunk (the stop rule's granularity)
+P = TILE * TILE  # pixels per tile
+
+# Launch counts of the CUDA kernels, incremented only where a kernel is
+# launched (CPU twins and kernel-vs-twin checks through the twins never
+# count). chip_smoke.py zeroes them before driving the train step.
+LAUNCHES = {"window_fwd": 0, "window_bwd": 0}
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch twins (CPU path; the on-card reference for the kernels)
+# ---------------------------------------------------------------------------
+
+
+def _pixel_centres(tile_ids, tiles_x):
+    """(T,) tile ids -> px, py (T, 1, P, 1) pixel centres."""
+    t = tile_ids.long()
+    pid = torch.arange(P, device=tile_ids.device)
+    tx = (t % tiles_x).float()[:, None] * TILE
+    ty = (t // tiles_x).float()[:, None] * TILE
+    px = tx + (pid % TILE).float()[None, :] + 0.5
+    py = ty + (pid // TILE).float()[None, :] + 0.5
+    return px[:, None, :, None], py[:, None, :, None]
+
+
+def _alpha_chunk(d, op, px, py, in_count):
+    """d (T, S, Fd, C) dyn rows, op (T, 1, 1, C), px/py (T, 1, P, 1),
+    in_count (T, S, 1, C) bool (slot < count and the row is running).
+
+    Returns alpha, dx, dy, active, each (T, S, P, C)."""
+    mx, my, ca, cb, cc, r = (d[:, :, i, None, :] for i in range(6))
+    dx = px - mx
+    dy = py - my
+    sigma = 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+    alpha_raw = op * torch.exp(-torch.clamp(sigma, min=0.0))
+    inbox = (torch.abs(dx) <= r) & (torch.abs(dy) <= r)
+    live = inbox & (sigma >= 0.0) & (alpha_raw >= ALPHA_CUTOFF) & in_count
+    active = live & (alpha_raw < ALPHA_CLAMP)
+    alpha = torch.where(live, torch.clamp(alpha_raw, max=ALPHA_CLAMP),
+                        torch.zeros_like(alpha_raw))
+    return alpha, dx, dy, active
+
+
+def _chunk_channels(d, s_chunk, n_static, depth_in_dyn):
+    """(T, S, nchan, C): shared static channels (+ per-sub-frame depth)."""
+    S = d.shape[1]
+    ch = s_chunk[:, None, 1 : 1 + n_static, :].expand(-1, S, -1, -1)
+    if depth_in_dyn:
+        ch = torch.cat([ch, d[:, :, 6:7, :]], dim=2)
+    return ch
+
+
+def _exclusive_transmittance(Tc, one_minus):
+    """T before each Gaussian of the chunk: Tc * prod_{j<g} (1 - alpha_j)."""
+    ex = torch.cumprod(one_minus, dim=-1)
+    ex = torch.cat([torch.ones_like(ex[..., :1]), ex[..., :-1]], dim=-1)
+    return Tc[..., None] * ex
+
+
+def _running(ci, nchunks, Tc):
+    """(T, S) bool: rows/sub-frames that composite chunk ci (stop rule)."""
+    return (ci < nchunks)[:, None] & (Tc.amax(dim=-1) >= EARLY_STOP_T)
+
+
+def composite_window_plain(dyn, st, counts, tile_ids, tiles_x, nchan,
+                           depth_in_dyn, return_work=False):
+    """Plain twin of the forward kernel.
+
+    dyn (T, S, Fd, cap), st (T, 1+Dc, cap), counts/tile_ids (T,) int32 ->
+    accum (T, S, nchan, P), tfin (T, S, P). Vectorized over rows and
+    sub-frames, a Python loop over chunks, with the kernel's stop rule.
+
+    ``return_work`` adds a dict of what the kernels' loops do on this data
+    (for bounds): ``pairs`` (pixel, Gaussian) evaluations up to each
+    (row, s)'s stop chunk and count, and ``live`` pairs that composite.
+    """
+    pairs = live = 0
+    T, S, Fd, cap = dyn.shape
+    n_static = nchan - (1 if depth_in_dyn else 0)
+    px, py = _pixel_centres(tile_ids, tiles_x)
+    counts = counts.long()
+    nchunks = (counts + CHUNK - 1) // CHUNK
+    Tc = dyn.new_ones((T, S, P))
+    accum = dyn.new_zeros((T, S, nchan, P))
+    lane = torch.arange(CHUNK, device=dyn.device)
+    for ci in range(cap // CHUNK):
+        run = _running(ci, nchunks, Tc)
+        if not bool(run.any()):
+            break
+        sl = slice(ci * CHUNK, (ci + 1) * CHUNK)
+        d, s_chunk = dyn[..., sl], st[..., sl]
+        in_count = ((ci * CHUNK + lane)[None, :] < counts[:, None])
+        in_count = (in_count[:, None, :] & run[..., None])[:, :, None, :]
+        alpha, _, _, _ = _alpha_chunk(d, s_chunk[:, None, 0:1, :], px, py,
+                                      in_count)
+        one_minus = 1.0 - alpha
+        Tg = _exclusive_transmittance(Tc, one_minus)
+        w = alpha * Tg
+        ch = _chunk_channels(d, s_chunk, n_static, depth_in_dyn)
+        accum = accum + torch.einsum("tscg,tspg->tscp", ch, w)
+        Tc = Tg[..., -1] * one_minus[..., -1]
+        if return_work:
+            pairs += int(in_count.sum()) * P
+            live += int((alpha > 0).sum())
+    if return_work:
+        return accum, Tc, {"pairs": pairs, "live": live}
+    return accum, Tc
+
+
+def composite_window_bwd_plain(dyn, st, counts, tile_ids, accum, tfin, gacc,
+                               gt, tiles_x, nchan, depth_in_dyn):
+    """Plain twin of the backward kernel.
+
+    Returns gdyn (T, S, Fd, cap) rows [g_mx, g_my, g_a, g_b, g_c, 0
+    (, g_depth)] and gst (T, 1+Dc, cap) rows [g_op, g_chans] summed over S.
+    """
+    T, S, Fd, cap = dyn.shape
+    n_static = nchan - (1 if depth_in_dyn else 0)
+    px, py = _pixel_centres(tile_ids, tiles_x)
+    counts = counts.long()
+    nchunks = (counts + CHUNK - 1) // CHUNK
+    total = torch.sum(accum * gacc, dim=2)  # (T, S, P)
+    gt_term = gt * tfin
+    Tc = dyn.new_ones((T, S, P))
+    prefix = dyn.new_zeros((T, S, P))
+    gdyn = torch.zeros_like(dyn)
+    gst = torch.zeros_like(st)
+    lane = torch.arange(CHUNK, device=dyn.device)
+    for ci in range(cap // CHUNK):
+        run = _running(ci, nchunks, Tc)
+        if not bool(run.any()):
+            break
+        sl = slice(ci * CHUNK, (ci + 1) * CHUNK)
+        d, s_chunk = dyn[..., sl], st[..., sl]
+        op = s_chunk[:, None, 0:1, :]
+        in_count = ((ci * CHUNK + lane)[None, :] < counts[:, None])
+        in_count = (in_count[:, None, :] & run[..., None])[:, :, None, :]
+        alpha, dx, dy, active = _alpha_chunk(d, op, px, py, in_count)
+        one_minus = 1.0 - alpha
+        Tg = _exclusive_transmittance(Tc, one_minus)
+        w = alpha * Tg
+        ch = _chunk_channels(d, s_chunk, n_static, depth_in_dyn)
+        sdot = torch.einsum("tscp,tscg->tspg", gacc, ch)
+        prefix_incl = prefix[..., None] + torch.cumsum(w * sdot, dim=-1)
+        suffix = total[..., None] - prefix_incl
+        g_alpha = Tg * sdot - (suffix + gt_term[..., None]) / one_minus
+        g_alpha = torch.where(active, g_alpha, torch.zeros_like(g_alpha))
+        g_sigma = -alpha * g_alpha
+        ca, cb, cc = (d[:, :, i, None, :] for i in (2, 3, 4))
+        g_op = torch.where(
+            active, alpha / torch.clamp(op, min=1e-12) * g_alpha,
+            torch.zeros_like(g_alpha),
+        ).sum(2)
+        rows = [
+            (-(ca * dx + cb * dy) * g_sigma).sum(2),
+            (-(cc * dy + cb * dx) * g_sigma).sum(2),
+            (0.5 * dx * dx * g_sigma).sum(2),
+            (dx * dy * g_sigma).sum(2),
+            (0.5 * dy * dy * g_sigma).sum(2),
+        ]
+        g_ch = torch.einsum("tscp,tspg->tscg", gacc, w)  # (T, S, nchan, C)
+        for i, g in enumerate(rows):
+            gdyn[:, :, i, sl] = g
+        if depth_in_dyn:
+            gdyn[:, :, 6, sl] = g_ch[:, :, n_static]
+        gst[:, 0, sl] += g_op.sum(1)
+        gst[:, 1:, sl] += g_ch[:, :, :n_static].sum(1)
+        Tc = Tg[..., -1] * one_minus[..., -1]
+        prefix = prefix_incl[..., -1]
+    return gdyn, gst
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrappers (ctypes; see ops/cuda_build.py)
+# ---------------------------------------------------------------------------
+
+
+def _check(x, name, dtype, shape, device):
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _ptr(x):
+    return ctypes.c_void_p(x.data_ptr())
+
+
+def _check_window_inputs(dyn, st, counts, tile_ids, nchan, depth_in_dyn):
+    T, S, Fd, cap = dyn.shape
+    dev = dyn.device
+    if Fd != 6 + int(bool(depth_in_dyn)):
+        raise ValueError(f"dyn has {Fd} rows, expected "
+                         f"{6 + int(bool(depth_in_dyn))}")
+    if cap % CHUNK:
+        raise ValueError(f"capacity {cap} is not a multiple of {CHUNK}")
+    Fs = 1 + nchan - int(bool(depth_in_dyn))
+    _check(dyn, "dyn", torch.float32, (T, S, Fd, cap), dev)
+    _check(st, "st", torch.float32, (T, Fs, cap), dev)
+    _check(counts, "counts", torch.int32, (T,), dev)
+    _check(tile_ids, "tile_ids", torch.int32, (T,), dev)
+    return T, S, Fd, Fs, cap
+
+
+def window_fwd_cuda(dyn, st, counts, tile_ids, tiles_x, nchan, depth_in_dyn):
+    """Launch the forward kernel (replaces the TPU kernel K1,
+    deblur4dgs_tpu/ops/rasterize.py::_fwd_kernel_window)."""
+    if not dyn.is_cuda:
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {dyn.device}")
+    T, S, Fd, Fs, cap = _check_window_inputs(
+        dyn, st, counts, tile_ids, nchan, depth_in_dyn
+    )
+    from deblur4dgs_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load()
+    accum = torch.empty((T, S, nchan, P), dtype=torch.float32,
+                        device=dyn.device)
+    tfin = torch.empty((T, S, P), dtype=torch.float32, device=dyn.device)
+    with torch.cuda.device(dyn.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.d4gs_window_fwd(
+            _ptr(tile_ids), _ptr(counts), _ptr(dyn), _ptr(st), _ptr(accum),
+            _ptr(tfin), T, S, Fd, Fs, cap, nchan, int(bool(depth_in_dyn)),
+            tiles_x, ctypes.c_void_p(stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"window forward kernel launch failed: "
+                           f"{cuda_build.error_string(err)}")
+    LAUNCHES["window_fwd"] += 1
+    return accum, tfin
+
+
+def window_bwd_cuda(dyn, st, counts, tile_ids, accum, tfin, gacc, gt,
+                    tiles_x, nchan, depth_in_dyn):
+    """Launch the backward kernel (replaces the TPU kernels K2,
+    _bwd_kernel_window_sgrid, and K3, _bwd_kernel_window). gst is summed
+    over S with atomicAdd into a zeroed buffer."""
+    if not dyn.is_cuda:
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {dyn.device}")
+    T, S, Fd, Fs, cap = _check_window_inputs(
+        dyn, st, counts, tile_ids, nchan, depth_in_dyn
+    )
+    from deblur4dgs_tpu_torch.ops import cuda_build
+
+    dev = dyn.device
+    _check(accum, "accum", torch.float32, (T, S, nchan, P), dev)
+    _check(tfin, "tfin", torch.float32, (T, S, P), dev)
+    _check(gacc, "gacc", torch.float32, (T, S, nchan, P), dev)
+    _check(gt, "gt", torch.float32, (T, S, P), dev)
+    lib = cuda_build.load()
+    gdyn = torch.empty_like(dyn)
+    gst = torch.zeros_like(st)  # atomicAdd target
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.d4gs_window_bwd(
+            _ptr(tile_ids), _ptr(counts), _ptr(dyn), _ptr(st), _ptr(accum),
+            _ptr(tfin), _ptr(gacc), _ptr(gt), _ptr(gdyn), _ptr(gst),
+            T, S, Fd, Fs, cap, nchan, int(bool(depth_in_dyn)), tiles_x,
+            ctypes.c_void_p(stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"window backward kernel launch failed: "
+                           f"{cuda_build.error_string(err)}")
+    LAUNCHES["window_bwd"] += 1
+    return gdyn, gst
+
+
+class _CompositeWindow(torch.autograd.Function):
+    """Kernel forward/backward on CUDA tensors, plain twins on CPU ones."""
+
+    @staticmethod
+    def forward(ctx, dyn, st, counts, tile_ids, tiles_x, nchan, depth_in_dyn):
+        if dyn.is_cuda:
+            accum, tfin = window_fwd_cuda(
+                dyn, st, counts, tile_ids, tiles_x, nchan, depth_in_dyn
+            )
+        else:
+            accum, tfin = composite_window_plain(
+                dyn, st, counts, tile_ids, tiles_x, nchan, depth_in_dyn
+            )
+        ctx.save_for_backward(dyn, st, counts, tile_ids, accum, tfin)
+        ctx.cfg = (tiles_x, nchan, depth_in_dyn)
+        return accum, tfin
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gacc, gt):
+        dyn, st, counts, tile_ids, accum, tfin = ctx.saved_tensors
+        gacc = torch.zeros_like(accum) if gacc is None else gacc.contiguous()
+        gt = torch.zeros_like(tfin) if gt is None else gt.contiguous()
+        fn = window_bwd_cuda if dyn.is_cuda else composite_window_bwd_plain
+        gdyn, gst = fn(dyn, st, counts, tile_ids, accum, tfin, gacc, gt,
+                       *ctx.cfg)
+        return gdyn, gst, None, None, None, None, None
+
+
+def composite_tiles_window(dyn, st, counts, tile_ids, tiles_x, nchan,
+                           depth_in_dyn):
+    """Exposure-window compositor with a custom backward.
+
+    dyn (T, S, Fd, cap) carries every sub-frame's screen rows; st
+    (T, 1+Dc, cap) is the window-shared static payload. Returns accum
+    (T, S, nchan, P), tfin (T, S, P). The static-payload gradient is summed
+    over sub-frames.
+    """
+    return _CompositeWindow.apply(
+        dyn, st, counts, tile_ids, tiles_x, nchan, bool(depth_in_dyn)
+    )
+
+
+# ---------------------------------------------------------------------------
+# Bucketed window compositing (host side)
+# ---------------------------------------------------------------------------
+
+
+def untile_cmajor(accum, tfin, img_wh, tiles_xy, nchan):
+    """Channel-major untile: (T, D, P), (T, P) -> (H, W, D), (H, W)."""
+    W, H = img_wh
+    tiles_x, tiles_y = tiles_xy
+    img = accum.reshape(tiles_y, tiles_x, nchan, TILE, TILE)
+    img = img.permute(0, 3, 1, 4, 2).reshape(
+        tiles_y * TILE, tiles_x * TILE, nchan
+    )
+    tf = tfin.reshape(tiles_y, tiles_x, TILE, TILE)
+    tf = tf.permute(0, 2, 1, 3).reshape(tiles_y * TILE, tiles_x * TILE)
+    return img[:H, :W], tf[:H, :W]
+
+
+def composite_window_buckets(
+    buckets,  # tiling.TileBuckets
+    st_list,  # per bucket: (Tb_pad, 1+Dc, cap_b) static payload
+    dyn_lists,  # per bucket: (Tb_pad, S, Fd, cap_b) fused-layout dyn rows
+    background: torch.Tensor,  # (nchan,)
+    img_wh: tuple[int, int],
+    include_depth: bool,
+    mask_channel: int | None = None,
+    tile_mesh=None,
+    stack_subframes: bool = True,
+    stack_mask: bool = False,
+):
+    """Composite a full exposure window in tile space, one untile per window.
+
+    Every bucket runs ONE compositor call covering all S sub-frames; the
+    exposure reductions (sum over sub-frames; max of the mask channel; min
+    of per-sub-frame expected depth) are taken on the (Tb, S, nchan, P)
+    outputs in tile space, and one inverse-permutation row gather + untile
+    reassembles the window.
+
+    Returns dict: sum_img (H, W, nchan) (background blended), sum_alpha
+    (H, W), max_mask (H, W, 1) | None, min_depth (H, W, 1) | None,
+    rgb_stack (S', H, W, 3), alpha_stack (S', H, W), mask_stack
+    (S', H, W, 1) | None, where S' = S, or 1 (the mid sub-frame) when
+    stack_subframes=False.
+    """
+    if tile_mesh is not None:
+        raise NotImplementedError(
+            "tile_mesh (compositing sharded over image tiles) comes with the "
+            "multi-device port slice"
+        )
+    tiles_x, tiles_y = num_tiles(img_wh)
+    T = tiles_x * tiles_y
+    S = dyn_lists[0].shape[1]
+    nb = len(st_list)
+    nchan = st_list[0].shape[1] - 1 + (1 if include_depth else 0)
+    s_keep = list(range(S)) if stack_subframes else [S // 2]
+    if stack_mask:
+        assert mask_channel is not None
+    ncs = 4 + (1 if stack_mask else 0)  # per-sub-frame slab channels
+    bg = background[None, None, :3, None]
+
+    # Per bucket, one wide channel axis (Tb, C, P):
+    #   [0:nchan] sum over sub-frames of composited channels
+    #   [nchan] sum over sub-frames of transmittance
+    #   [+1 if mask] max over sub-frames of the mask channel
+    #   [+1 if depth] min over sub-frames of expected depth
+    #   [ncs*S'] per-sub-frame (rgb + transmittance (+ mask)) slabs
+    packed_b = []
+    for b in range(nb):
+        acc, tf = composite_tiles_window(
+            dyn_lists[b], st_list[b], buckets.counts[b],
+            buckets.tile_ids[b], tiles_x, nchan, include_depth,
+        )
+        tf1 = tf[:, :, None, :]  # (Tb, S, 1, P)
+        parts = [acc.sum(1), tf1.sum(1)]
+        if mask_channel is not None:
+            parts.append(acc[:, :, mask_channel : mask_channel + 1].amax(1))
+        if include_depth:
+            d = acc[:, :, -1:, :] / torch.clamp(1.0 - tf1, min=1e-10)
+            parts.append(d.amin(1))
+        acc_k = acc[:, s_keep] if len(s_keep) != S else acc
+        tf1_k = tf1[:, s_keep] if len(s_keep) != S else tf1
+        slab = [acc_k[:, :, :3, :] + tf1_k * bg, tf1_k]
+        if stack_mask:
+            slab.append(acc_k[:, :, mask_channel : mask_channel + 1, :])
+        slab = torch.cat(slab, dim=2)  # (Tb, S', ncs, P)
+        parts.append(slab.reshape(slab.shape[0], len(s_keep) * ncs, P))
+        n = buckets.sizes[b]
+        packed_b.append(torch.cat([p[:n] for p in parts], dim=1))
+
+    # Invert the bucket permutation once: every image tile lives in exactly
+    # one bucket row (pad rows are excluded by [:n]).
+    ids_cat = torch.cat(
+        [ids[:n] for ids, n in zip(buckets.tile_ids, buckets.sizes)]
+    ).long()
+    inv = torch.zeros((T,), dtype=torch.int64, device=ids_cat.device)
+    inv[ids_cat] = torch.arange(T, device=ids_cat.device)
+    packed = torch.cat(packed_b, dim=0)[inv]  # (T, C, P)
+    return _window_outputs_from_packed(
+        packed, background, img_wh, (tiles_x, tiles_y), nchan,
+        mask_channel, include_depth, s_keep, ncs, S, stack_mask,
+    )
+
+
+def _window_outputs_from_packed(
+    packed, background, img_wh, tiles_xy, nchan, mask_channel,
+    include_depth, s_keep, ncs, S, stack_mask,
+):
+    """Untile the (T, C, P) packed window channels into the output dict."""
+    C = packed.shape[1]
+    img_all, _ = untile_cmajor(packed, packed[:, 0], img_wh, tiles_xy, C)
+    H, Wd = img_all.shape[:2]
+    sum_img = (
+        img_all[..., :nchan]
+        + img_all[..., nchan : nchan + 1] * background[None, None, :]
+    )
+    out = {
+        "sum_img": sum_img,
+        "sum_alpha": float(S) - img_all[..., nchan],
+        "max_mask": None,
+        "min_depth": None,
+    }
+    off = nchan + 1
+    if mask_channel is not None:
+        out["max_mask"] = img_all[..., off : off + 1]
+        off += 1
+    if include_depth:
+        out["min_depth"] = img_all[..., off : off + 1]
+        off += 1
+    Sk = len(s_keep)
+    slab = img_all[..., off : off + ncs * Sk].reshape(H, Wd, Sk, ncs)
+    out["rgb_stack"] = torch.movedim(slab[..., :3], 2, 0)
+    out["alpha_stack"] = 1.0 - torch.movedim(slab[..., 3], 2, 0)
+    out["mask_stack"] = (
+        torch.movedim(slab[..., 4:5], 2, 0) if stack_mask else None
+    )
+    return out
