@@ -3,28 +3,55 @@
     python3 chip_smoke.py
 
 Needs one CUDA card (an H100 / sm_90a) and nvcc. It builds the port's CUDA
-kernels from deblur4dgs_tpu_torch/csrc, then:
+kernels from deblur4dgs_tpu_torch/csrc (one nvcc per source, all started
+together), then:
 
   1. prints the card (nvidia-smi name, power limit), torch / CUDA versions
      and the kernel build time + ptxas register report;
-  2. holds the window forward kernel against its plain twin on random
-     inputs at the bench's bucket capacities (128, 256, 512, 1024), S=11,
-     nchan=11, with empty rows and rows that saturate early;
-  3. the same for the window backward kernel (gdyn, gst);
-  4. drives the port's dynamic train step at the full bench.py shape
+  2. holds each kernel against its plain twin on random inputs at capacities
+     128, 256, 512 and 1024, with an empty row and rows that saturate in
+     their first chunk: the window kernels (K1, K2/K3) at S=11, nchan 11
+     (the dynamic window) and nchan 5 (the static windows); the dense
+     kernels (K5) at D=4 and D=5 (phase a); the split path (K4, the window
+     kernels at S=1) at nchan 11 and 5 (phase b);
+  3. drives the port's dynamic train step at the full bench.py shape
      (1280x720, 40k fg + 60k bg Gaussians, S=11, tile cap 1024; the scene,
      batch and tracks drawn from numpy default_rng(0) exactly as bench.py
      builds them; MoveModel weights from torch.Generator seed 0): one
-     warm-up step, then timed steps with the kernel launch counters zeroed
-     just before and read just after (4 forward + 4 backward per step);
-  5. holds both kernels against their twins on that step's real inputs
-     (first 64 rows of every bucket) and times kernels and twins on the
-     full buckets;
-  6. runs two train steps of a small scene on the card and on the CPU
-     (the CPU path is the one tests/test_torch_*.py hold against the JAX
-     package) and compares losses and aux values.
+     warm-up step, then timed steps with the launch counters zeroed just
+     before and read just after (4 forward + 4 backward window launches per
+     step); holds the window kernels against their twins on that step's
+     inputs (first 64 rows of every bucket);
+  4. drives the stage-2 step (static + dynamic + static-reg branches and
+     the multires guide) at the same shape (phase c): the static batch is
+     B=3 frames (ts 4/5/6), the reg batch the dynamic frame with random
+     target images, batch4_imgs (1, 180, 320, 3), all drawn from the same
+     generator after bench.py's draws (the static and reg batches get a
+     rectangular fg mask: bench.py's scattered random mask dilates to the
+     whole image and would leave the bg-only branches no gradient). One
+     warm-up step, 5 timed steps with counters zeroed (16 window launches
+     per direction per step: 4 windows x 4 buckets; 1 dense), a 2-step
+     profile, and one step's recorded inputs: the window kernels on its
+     16 calls and K5 on its static-reg call, held against their twins
+     (first 64 rows of each call) and timed with them; the kernels line
+     reports these times;
+  5. drives the stage-1 step (the static branch alone, stage 'first') at
+     the same shape and static batch: one warm-up step, 5 timed steps,
+     3 windows x 4 buckets window launches per direction per step, and a
+     2-step profile;
+  6. runs two train steps of small scenes on the card and on the CPU (the
+     CPU path is the one tests/test_torch_*.py hold against the JAX
+     package) and compares losses and aux values (phase d): the dynamic
+     step at 128x128; the stage-2 step at 128x128 (windows through K1/K2,
+     reg through K5) and at 64x48 (windows through K4, with S x 4 split
+     launches per direction per step, reg through K5); the stage-1 step at
+     64x48 (S x 3 split launches); K4 is timed and held against its twin
+     on the 64x48 stage-2 run's inputs.
 
-Prints a {"kernels": [...]} JSON line, the step time, the card line, and
+Bounds count what the run's data needs: the (pixel, Gaussian) pairs up to
+each row's stop chunk, and of each payload only the slots walked.
+
+Prints a {"kernels": [...]} JSON line, the step times, the card line, and
 last {"ok": true, "device": {...}}. Any failed check raises (exit != 0).
 Exits non-zero without a result when no CUDA card is visible or when the
 package is not next to this file. Imports no JAX.
@@ -32,6 +59,7 @@ package is not next to this file. Imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -51,6 +79,8 @@ NUM_EXPOSURE = 11
 TILE_CAP = 1024
 NUM_FRAMES = 24
 TIMED_STEPS = 5
+EPOCH = 25  # > 20: the pose-net gate and the multires guide are on
+DEV = "cuda"
 # Kernel-vs-twin bars (float32 reassociation: per-pixel sums of up to 1024
 # terms in another order; gst summed over S with atomics in any order).
 FWD_TOL = 2e-4  # max |kernel - twin| / max(1, max |twin|)
@@ -62,12 +92,30 @@ CARD_RATES = {  # name key: (bytes/s, fp32 flop/s)
     "H100 NVL": (3.9e12, 60e12),
     "H100": (3.35e12, 67e12),  # SXM5 80GB HBM3
 }
-# Operations per (pixel, Gaussian) pair, counted from the kernels' code:
-# alpha evaluation ~20 (offsets, conic quadratic, exp, box/cutoff tests);
-# a live pair adds 2*nchan + 3 in the forward (weight, channel FMAs,
-# transmittance), 4*nchan + 36 in the backward (sdot, channel grads,
-# prefix/suffix, alpha/conic/mean/opacity grads, one add per reduced value).
+# Operations per (pixel, Gaussian) pair, counted from the kernels' code
+# (the same per-pair code in all of them): alpha evaluation ~20 (offsets,
+# conic quadratic, exp, box/cutoff tests); a live pair adds 2*nchan + 3 in
+# the forward (weight, channel FMAs, transmittance), 4*nchan + 36 in the
+# backward (sdot, channel grads, prefix/suffix, alpha/conic/mean/opacity
+# grads, one add per reduced value).
 OPS_PAIR = 20
+# Per port kernel: the TPU kernel it replaces (line in
+# deblur4dgs_tpu/ops/rasterize.py, function) and its source in the port.
+KERNEL_INFO = {
+    "window_fwd": (989, "_fwd_kernel_window", "window_composite.cu",
+                   "window_fwd_kernel"),
+    "window_bwd": (1220, "_bwd_kernel_window_sgrid; also K3 "
+                   "_bwd_kernel_window :1049", "window_composite.cu",
+                   "window_bwd_kernel"),
+    "dense_fwd": (160, "_fwd_kernel", "dense_composite.cu",
+                  "dense_fwd_kernel"),
+    "dense_bwd": (207, "_bwd_kernel / _bwd_one_tile :221",
+                  "dense_composite.cu", "dense_bwd_kernel"),
+    "split_fwd": (548, "_fwd_kernel_split", "window_composite.cu",
+                  "window_fwd_kernel at S=1"),
+    "split_bwd": (608, "_bwd_kernel_split", "window_composite.cu",
+                  "window_bwd_kernel at S=1"),
+}
 
 
 def fail(msg):
@@ -112,7 +160,32 @@ def cuda_ms(fn, reps):
 
 
 def nbytes(*ts):
-    return sum(t.numel() * t.element_size() for t in ts)
+    return sum(t.numel() * t.element_size() for t in ts if torch.is_tensor(t))
+
+
+def input_bytes(fa, slots):
+    """Bytes of a compositor call's inputs ``fa`` that its kernels must
+    read: of each float payload (..., F, cap) only the slots walked before
+    the stop chunk (``slots`` (T, S) from the twin's work): a per-sub-frame
+    payload (T, S, F, cap) per (row, s), a row payload (T, F, cap) once per
+    row as far as the row's furthest sub-frame; counts and tile ids whole.
+    A row's sentinel tail is never read."""
+    per_rs, per_row = float(slots.sum()), float(slots.amax(1).sum())
+    total = 0.0
+    for x in fa:
+        if not torch.is_tensor(x):
+            continue
+        if x.is_floating_point():
+            walked = per_rs if x.dim() == 4 else per_row
+            total += walked * x.shape[-2] * x.element_size()
+        else:
+            total += nbytes(x)
+    return total
+
+
+def zero_launches(tr):
+    for k in tr.LAUNCHES:
+        tr.LAUNCHES[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -155,17 +228,87 @@ def random_bucket(seed, T, S, nchan, cap, tiles_x, n_tiles, dev):
     return t(dyn), t(st), t(counts), t(ids)
 
 
-def bench_state(dev):
-    """bench.py's scene, batch and tracks, drawn in the same order."""
+def random_dense(seed, T, nchan, cap, tiles_x, dev):
+    """Random dense (K5) inputs: row t holds Gaussians around image tile t,
+    rows [mx, my, a, b, c, op, r, channels]. Row 0 is empty; rows 1-8 hold
+    wide opaque Gaussians and saturate in their first chunk."""
+    rng = np.random.default_rng(seed)
+    data = np.zeros((T, 7 + nchan, cap), np.float32)
+    t = np.arange(T)
+    data[:, 0] = (t % tiles_x)[:, None] * 16.0 + rng.uniform(-4, 20, (T, cap))
+    data[:, 1] = (t // tiles_x)[:, None] * 16.0 + rng.uniform(-4, 20,
+                                                               (T, cap))
+    data[:, 2] = rng.uniform(0.02, 0.5, (T, cap))
+    data[:, 3] = rng.uniform(-0.01, 0.01, (T, cap))
+    data[:, 4] = rng.uniform(0.02, 0.5, (T, cap))
+    data[:, 5] = rng.uniform(0.05, 0.9, (T, cap))
+    data[:, 6] = rng.uniform(3, 30, (T, cap)).round()
+    data[:, 7:] = rng.normal(size=(T, nchan, cap))
+    data[1:9, 2:5] *= 0.02
+    data[1:9, 5] = 0.98
+    counts = rng.integers(1, cap + 1, T).astype(np.int32)
+    counts[0] = 0
+    counts[1:9] = cap
+    data *= (np.arange(cap)[None] < counts[:, None])[:, None]
+    return (torch.as_tensor(data, device=dev),
+            torch.as_tensor(counts, device=dev))
+
+
+def rect_masks(rng, B):
+    """(B, H, W) fg masks: one (H/4, W/4) rectangle at a random place."""
+    m = np.zeros((B, H, W), np.float32)
+    for b in range(B):
+        y0, x0 = rng.integers(0, H // 2), rng.integers(0, W // 2)
+        m[b, y0 : y0 + H // 4, x0 : x0 + W // 4] = 1.0
+    return m
+
+
+# The train steps driven: make_train_step's stage and branch flags.
+STEP_KINDS = {
+    "dynamic": dict(stage="second", has_dynamic=True),  # bench.py's step
+    "stage2": dict(stage="second", has_static=True, has_dynamic=True,
+                   has_reg=True, has_batch4=True),  # pipeline.py:500-508
+    "stage1": dict(stage="first", has_static=True),  # pipeline.py:435-441
+}
+
+
+def step_args(kind, static, dyn, tracks, reg, b4):
+    """The step's batch arguments, None for the branches it lacks."""
+    f = STEP_KINDS[kind]
+    return (static if f.get("has_static") else None,
+            dyn if f.get("has_dynamic") else None,
+            tracks if f.get("has_dynamic") else None,
+            reg if f.get("has_reg") else None,
+            b4 if f.get("has_batch4") else None)
+
+
+def make_step(kind, scene, T, rcfg):
     from deblur4dgs_tpu_torch.configs import (
-        LossesConfig, OptimizerConfig, RenderConfig, SceneLRConfig)
+        LossesConfig, OptimizerConfig, SceneLRConfig)
+    from deblur4dgs_tpu_torch.train.optimizers import make_optimizer
+    from deblur4dgs_tpu_torch.train.trainer import (
+        init_train_state, make_train_step)
+
+    lr, ocfg = SceneLRConfig(), OptimizerConfig()
+    flags = {k: STEP_KINDS[kind].get(k, False)
+             for k in ("has_static", "has_dynamic", "has_reg", "has_batch4")}
+    stage = STEP_KINDS[kind]["stage"]
+    return (init_train_state(scene, lr, ocfg),
+            make_train_step(make_optimizer(scene, lr, ocfg), LossesConfig(),
+                            rcfg, stage, T, **flags))
+
+
+def bench_state(dev, kind="dynamic"):
+    """bench.py's scene, batch and tracks, drawn in the same order, and the
+    step of ``kind`` (STEP_KINDS) to drive: (state, drive(state) -> (state,
+    loss, aux)). The static batch, the reg batch and the multires guide
+    are drawn after bench.py's draws."""
+    from deblur4dgs_tpu_torch.configs import RenderConfig
     from deblur4dgs_tpu_torch.models.gaussians import Gaussians
     from deblur4dgs_tpu_torch.models.motion_bases import MotionBases
     from deblur4dgs_tpu_torch.models.move_model import init_move_model
     from deblur4dgs_tpu_torch.models.scene import SceneModel
-    from deblur4dgs_tpu_torch.train.optimizers import make_optimizer
-    from deblur4dgs_tpu_torch.train.trainer import (
-        FrameBatch, TrackBatch, init_train_state, make_train_step)
+    from deblur4dgs_tpu_torch.train.trainer import FrameBatch, TrackBatch
 
     rng = np.random.default_rng(0)
     f32 = np.float32
@@ -192,13 +335,9 @@ def bench_state(dev):
         move=init_move_model(torch.Generator().manual_seed(0), T,
                              device=dev),
     )
-    lr, ocfg, lcfg = SceneLRConfig(), OptimizerConfig(), LossesConfig()
     rcfg = RenderConfig(num_exposure=NUM_EXPOSURE, tile_cap=TILE_CAP,
                         max_tiles_per_gauss=32)
-    state = init_train_state(scene, lr, ocfg)
-    step = make_train_step(make_optimizer(scene, lr, ocfg), lcfg, rcfg,
-                           "second", T, has_static=False, has_dynamic=True,
-                           has_reg=False)
+    state, step = make_step(kind, scene, T, rcfg)
     f = 1000.0
     K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], f32)
     eye = np.eye(4, dtype=f32)
@@ -221,18 +360,40 @@ def bench_state(dev):
         target_confidences=t(np.ones((2, P), f32)),
         target_track_depths=t(rng.uniform(2, 8, (2, P)).astype(f32)),
     )
-    return state, step, batch, tracks
+    if kind == "dynamic":
+        return state, lambda s: step(s, EPOCH, None, batch, tracks, None,
+                                     None)
+    w2cs = np.tile(eye, (3, 1, 1))
+    w2cs[:, 0, 3] = [-0.02, 0.0, 0.02]
+    static = FrameBatch(
+        ts=t(np.array([4, 5, 6], np.int32)), w2cs=t(w2cs),
+        Ks=t(np.tile(K, (3, 1, 1))),
+        imgs=t(rng.uniform(0, 1, (3, H, W, 3)).astype(f32)),
+        masks=t(rect_masks(rng, 3)), valid_masks=t(np.ones((3, H, W), f32)),
+        depths=t(rng.uniform(2, 8, (3, H, W)).astype(f32)),
+    )
+    reg = batch._replace(
+        imgs=t(rng.uniform(0, 1, (1, H, W, 3)).astype(f32)),
+        masks=t(rect_masks(rng, 1)))
+    b4 = t(rng.uniform(0, 1, (1, H // 4, W // 4, 3)).astype(f32))
+    args = step_args(kind, static, batch, tracks, reg, b4)
+    return state, lambda s: step(s, EPOCH, *args)
 
 
 # ---------------------------------------------------------------------------
-# Phases
+# Kernel vs twin
 # ---------------------------------------------------------------------------
+
+
+def n_tensors(args):
+    return sum(torch.is_tensor(a) for a in args)
 
 
 @torch.no_grad()
-def compare_fwd(tr, args):
-    acc_k, tf_k = tr.window_fwd_cuda(*args)
-    acc_p, tf_p = tr.composite_window_plain(*args)
+def compare_fwd(tr, kind, args):
+    k_fwd, p_fwd, _, _ = tr._COMPOSITORS[kind]
+    acc_k, tf_k = k_fwd(*args)
+    acc_p, tf_p = p_fwd(*args)
     scale = max(1.0, float(acc_p.abs().max()))
     err = max(float((acc_k - acc_p).abs().max()),
               float((tf_k - tf_p).abs().max()))
@@ -240,128 +401,248 @@ def compare_fwd(tr, args):
 
 
 @torch.no_grad()
-def compare_bwd(tr, args):
-    gd_k, gs_k = tr.window_bwd_cuda(*args)
-    gd_p, gs_p = tr.composite_window_bwd_plain(*args)
+def compare_bwd(tr, kind, args):
+    _, _, k_bwd, p_bwd = tr._COMPOSITORS[kind]
+    gk, gp = k_bwd(*args), p_bwd(*args)
+    gk, gp = (gk,) if torch.is_tensor(gk) else gk, \
+        (gp,) if torch.is_tensor(gp) else gp
     err = rel = 0.0
-    for k, p in ((gd_k, gd_p), (gs_k, gs_p)):
+    for k, p in zip(gk, gp):
         e = float((k - p).abs().max())
         err = max(err, e)
         rel = max(rel, e / (float(p.abs().max()) + 1e-30))
     return err, rel
 
 
-def bwd_args_for(tr, fwd_args, seed):
-    """Backward inputs for fwd_args: the kernel's forward outputs and random
+def bwd_args_for(tr, kind, fwd_args, seed):
+    """Backward inputs for fwd_args: the twin's forward outputs and random
     cotangents."""
-    acc, tf = tr.composite_window_plain(*fwd_args)
+    acc, tf = tr._COMPOSITORS[kind][1](*fwd_args)
     g = torch.Generator(device=acc.device).manual_seed(seed)
     gacc = torch.randn(acc.shape, generator=g, device=acc.device)
     gt = torch.randn(tf.shape, generator=g, device=acc.device)
-    return fwd_args[:4] + (acc, tf, gacc, gt) + fwd_args[4:]
+    n = n_tensors(fwd_args)
+    return fwd_args[:n] + (acc, tf, gacc, gt) + fwd_args[n:]
+
+
+class Errs:
+    """Running max of kernel-vs-twin errors per kernel name."""
+
+    def __init__(self):
+        self.v = {}
+
+    def add(self, name, err, rel, tol, what):
+        check(rel <= tol, f"{name} vs twin ({what}): rel err {rel:.3e}")
+        a, r = self.v.get(name, (0.0, 0.0))
+        self.v[name] = (max(a, err), max(r, rel))
 
 
 @torch.no_grad()
-def phase_random(tr, dev):
-    errs = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}
-    for i, cap in enumerate((128, 256, 512, 1024)):
-        dyn, st, counts, ids = random_bucket(i, 64, NUM_EXPOSURE, 11, cap,
-                                             80, 3600, dev)
-        fargs = (dyn, st, counts, ids, 80, 11, True)
-        e, r = compare_fwd(tr, fargs)
-        print(f"# random cap={cap}: forward max abs err {e:.3e} "
-              f"(rel {r:.3e})")
-        check(r <= FWD_TOL, f"forward kernel vs twin at cap {cap}: {r:.3e}")
-        errs["fwd"] = [max(errs["fwd"][0], e), max(errs["fwd"][1], r)]
-        bargs = bwd_args_for(tr, fargs, i)
-        e, r = compare_bwd(tr, bargs)
-        print(f"# random cap={cap}: backward max abs err {e:.3e} "
-              f"(rel to max |g| {r:.3e})")
-        check(r <= BWD_TOL, f"backward kernel vs twin at cap {cap}: {r:.3e}")
-        errs["bwd"] = [max(errs["bwd"][0], e), max(errs["bwd"][1], r)]
+def phase_random(tr, errs, kind, cases):
+    """Kernels vs twins on random inputs; ``cases``: (label, fwd args)."""
+    for i, (label, fargs) in enumerate(cases):
+        e, r = compare_fwd(tr, kind, fargs)
+        errs.add(f"{kind}_fwd", e, r, FWD_TOL, f"random {label}")
+        e2, r2 = compare_bwd(tr, kind, bwd_args_for(tr, kind, fargs, i))
+        errs.add(f"{kind}_bwd", e2, r2, BWD_TOL, f"random {label}")
+        print(f"# random {kind} {label}: forward max abs err {e:.3e} (rel "
+              f"{r:.3e}), backward {e2:.3e} (rel to max |g| {r2:.3e})")
         # the early-saturating rows really stopped early
-        _, tf = tr.composite_window_plain(*fargs)
+        _, tf = tr._COMPOSITORS[kind][1](*fargs)
         check(float(tf[1:9].max()) < tr.EARLY_STOP_T,
-              "saturating rows did not saturate")
+              f"{kind} {label}: saturating rows did not saturate")
     torch.cuda.synchronize()
-    return errs
 
 
-def phase_bench(tr, dev="cuda"):
-    state, step, batch, tracks = bench_state(dev)
+@contextlib.contextmanager
+def recording(tr, kind):
+    """Record the arguments of every kernel call of ``kind`` (the launches
+    still count: they are the driven path's own)."""
+    rec = {"fwd": [], "bwd": []}
+    orig = tr._COMPOSITORS[kind]
+
+    def wrap(fn, key):
+        def f(*a):
+            rec[key].append(a)
+            return fn(*a)
+        return f
+
+    tr._COMPOSITORS[kind] = (wrap(orig[0], "fwd"), orig[1],
+                             wrap(orig[2], "bwd"), orig[3])
+    try:
+        yield rec
+    finally:
+        tr._COMPOSITORS[kind] = orig
+
+
+@torch.no_grad()
+def measure(tr, errs, kind, rec, rates, reps=10):
+    """Kernels vs twins on a recorded step's inputs (first 64 rows of each
+    call), kernel and twin device times per step (all calls of the step),
+    and the step's bound: max(bytes / HBM rate, ops / FP32 rate) with the
+    pairs and payload slots the twin's loops count on this data (bytes:
+    input_bytes, plus the forward outputs read back by the backward and
+    every output written whole)."""
+    k_fwd, p_fwd, k_bwd, p_bwd = tr._COMPOSITORS[kind]
+    bw, peak = rates
+    cut = lambda a: tuple(x[:64] if torch.is_tensor(x) else x for x in a)
+    for i, (fa, ba) in enumerate(zip(rec["fwd"], rec["bwd"])):
+        e, r = compare_fwd(tr, kind, cut(fa))
+        errs.add(f"{kind}_fwd", e, r, FWD_TOL, f"real call {i}")
+        e2, r2 = compare_bwd(tr, kind, cut(ba))
+        errs.add(f"{kind}_bwd", e2, r2, BWD_TOL, f"real call {i}")
+        print(f"# real {kind} call {i} {tuple(fa[0].shape)}: fwd err "
+              f"{e:.3e} (rel {r:.3e}), bwd err {e2:.3e} (rel {r2:.3e})")
+    ms = {"fwd": cuda_ms(lambda: [k_fwd(*a) for a in rec["fwd"]], reps),
+          "bwd": cuda_ms(lambda: [k_bwd(*a) for a in rec["bwd"]], reps)}
+    plain = {"fwd": cuda_ms(lambda: [p_fwd(*a) for a in rec["fwd"]], 1),
+             "bwd": cuda_ms(lambda: [p_bwd(*a) for a in rec["bwd"]], 1)}
+    pairs = live = by_f = by_b = 0
+    ops_f = ops_b = 0
+    for fa, ba in zip(rec["fwd"], rec["bwd"]):
+        nchan = fa[n_tensors(fa) + 1]  # after tiles_x
+        acc, tf, work = p_fwd(*fa, return_work=True)
+        pairs += work["pairs"]
+        live += work["live"]
+        ops_f += OPS_PAIR * work["pairs"] + (2 * nchan + 3) * work["live"]
+        ops_b += OPS_PAIR * work["pairs"] + (4 * nchan + 36) * work["live"]
+        ins = input_bytes(fa, work["slots"])
+        by_f += ins + nbytes(acc, tf)
+        n = n_tensors(fa)
+        g = k_bwd(*ba)
+        by_b += ins + nbytes(*ba[n : n + 4],
+                             *((g,) if torch.is_tensor(g) else g))
+    bounds = {}
+    for k, by, ops in (("fwd", by_f, ops_f), ("bwd", by_b, ops_b)):
+        t_bytes, t_ops = by / bw * 1e3, ops / peak * 1e3
+        bounds[k] = (max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations")
+        print(f"# {kind} {k}: {by / 1e9:.3f} GB -> {t_bytes:.4f} ms; "
+              f"{ops / 1e9:.2f} Gop -> {t_ops:.4f} ms; pairs {pairs}, live "
+              f"{live}; kernel {ms[k]:.3f} ms, twin {plain[k]:.3f} ms")
+    torch.cuda.synchronize()
+    return ms, plain, bounds
+
+
+# ---------------------------------------------------------------------------
+# Train-step phases
+# ---------------------------------------------------------------------------
+
+
+def drive_steps(tr, state, drive, label, expected):
+    """One warm-up step, then TIMED_STEPS steps with the launch counters
+    zeroed just before and read just after; checks finiteness and that the
+    counters read exactly ``expected`` launches per step."""
     t0 = time.time()
-    state, loss, aux = step(state, 25, None, batch, tracks, None, None)
+    state, loss, aux = drive(state)
     torch.cuda.synchronize()
-    print(f"# warm-up step {time.time() - t0:.2f} s, loss {float(loss):.5f}, "
-          f"tile_overflow {float(aux['dynamic']['tile_overflow']):.4f}")
-
-    for k in tr.LAUNCHES:
-        tr.LAUNCHES[k] = 0
+    overflow = {b: float(a["tile_overflow"]) for b, a in aux.items()
+                if "tile_overflow" in a}
+    print(f"# {label}: warm-up step {time.time() - t0:.2f} s, loss "
+          f"{float(loss):.5f}, tile_overflow {overflow}")
+    zero_launches(tr)
     times, losses = [], []
     for _ in range(TIMED_STEPS):
         t0 = time.time()
-        state, loss, aux = step(state, 25, None, batch, tracks, None, None)
+        state, loss, aux = drive(state)
         torch.cuda.synchronize()
         times.append(time.time() - t0)
         losses.append(float(loss))
     launches = dict(tr.LAUNCHES)
-    print(f"# timed steps (s): {[round(x, 6) for x in times]}; losses "
-          f"{losses}; launches {launches}")
-    check(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    print(f"# {label}: timed steps (s) {[round(x, 6) for x in times]}; "
+          f"losses {losses}; launches {launches}")
+    check(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
     for name, p in state.scene.named_parameters():
-        check(bool(torch.isfinite(p).all()), f"non-finite parameter {name}")
-    # one forward and one backward launch per bucket per step (4 buckets at
-    # the bench shape: default_bucket_spec(3600, 1024))
+        check(bool(torch.isfinite(p).all()),
+              f"{label}: non-finite parameter {name}")
+    for k in tr.LAUNCHES:
+        want = expected.get(k, 0) * TIMED_STEPS
+        check(launches[k] == want,
+              f"{label}: {k} launched {launches[k]} times, expected {want}")
+    return state, times, launches
+
+
+def n_buckets():
     from deblur4dgs_tpu_torch.ops.tiling import default_bucket_spec, num_tiles
     tx, ty = num_tiles((W, H))
-    nb = len(default_bucket_spec(tx * ty, TILE_CAP))
-    for k in ("window_fwd", "window_bwd"):
-        check(launches[k] == nb * TIMED_STEPS,
-              f"{k}: {launches[k]} launches, expected {nb * TIMED_STEPS}")
+    return len(default_bucket_spec(tx * ty, TILE_CAP))
 
-    # one more step recording every kernel call's inputs (not counted)
-    rec = {"fwd": [], "bwd": []}
-    orig_f, orig_b = tr.window_fwd_cuda, tr.window_bwd_cuda
 
-    def rec_f(*a):
-        rec["fwd"].append(a)
-        return orig_f(*a)
-
-    def rec_b(*a):
-        rec["bwd"].append(a)
-        return orig_b(*a)
-
-    tr.window_fwd_cuda, tr.window_bwd_cuda = rec_f, rec_b
-    try:
-        state, loss, aux = step(state, 25, None, batch, tracks, None, None)
+def phase_bench(tr, errs, rates):
+    """The dynamic step at the bench shape; window kernels on its inputs."""
+    state, drive = bench_state(DEV)
+    nb = n_buckets()
+    state, times, launches = drive_steps(
+        tr, state, drive, "dynamic step",
+        {"window_fwd": nb, "window_bwd": nb})
+    with recording(tr, "window") as rec:
+        state, _, _ = drive(state)
         torch.cuda.synchronize()
-    finally:
-        tr.window_fwd_cuda, tr.window_bwd_cuda = orig_f, orig_b
     check(len(rec["fwd"]) == nb and len(rec["bwd"]) == nb,
-          f"recorded {len(rec['fwd'])}/{len(rec['bwd'])} kernel calls")
-    step_state = (state, step, batch, tracks)
-    return times, launches, rec, step_state
+          f"recorded {len(rec['fwd'])}/{len(rec['bwd'])} window calls")
+    del state
+    torch.cuda.empty_cache()
+    return times, launches, measure(tr, errs, "window", rec, rates)
 
 
-def phase_profile(step_state, steps=2, top=15):
+def phase_stage2(tr, errs, rates):
+    """(c) The stage-2 step at the bench shape, its profile, and the window
+    kernels (16 calls: 3 static windows, nchan 5, and the dynamic one,
+    nchan 11) and K5 (the static-reg call) on one step's recorded
+    inputs."""
+    state, drive = bench_state(DEV, "stage2")
+    nb = n_buckets()
+    state, times, launches = drive_steps(
+        tr, state, drive, "stage-2 step",
+        {"window_fwd": 4 * nb, "window_bwd": 4 * nb, "dense_fwd": 1,
+         "dense_bwd": 1})
+    state = phase_profile(state, drive)
+    with recording(tr, "dense") as rec_d, recording(tr, "window") as rec_w:
+        state, _, _ = drive(state)
+        torch.cuda.synchronize()
+    for kind, rec, n in (("dense", rec_d, 1), ("window", rec_w, 4 * nb)):
+        check(len(rec["fwd"]) == n and len(rec["bwd"]) == n,
+              f"recorded {len(rec['fwd'])}/{len(rec['bwd'])} {kind} calls, "
+              f"expected {n}")
+    del state
+    torch.cuda.empty_cache()
+    return (times, launches, measure(tr, errs, "window", rec_w, rates),
+            measure(tr, errs, "dense", rec_d, rates))
+
+
+def phase_stage1(tr):
+    """The stage-1 step (the static branch alone, stage 'first') at the
+    bench shape: 3 bg-only windows x the buckets per direction per step;
+    and its profile."""
+    state, drive = bench_state(DEV, "stage1")
+    nb = n_buckets()
+    state, times, launches = drive_steps(
+        tr, state, drive, "stage-1 step",
+        {"window_fwd": 3 * nb, "window_bwd": 3 * nb})
+    state = phase_profile(state, drive, top=8)
+    del state
+    torch.cuda.empty_cache()
+    return times, launches
+
+
+def phase_profile(state, drive, steps=2, top=15):
     """Device time by kernel and by aten op over `steps` train steps, and
     the device's busy share of the host wall time (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
-    state, step, batch, tracks = step_state
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.time()
         for _ in range(steps):
-            state, loss, _ = step(state, 25, None, batch, tracks, None, None)
+            state, _, _ = drive(state)
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         print("# profiler: no device events recorded")
-        return
+        return state
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0, *spans[0]
     for s_, e_ in spans[1:]:
@@ -388,66 +669,22 @@ def phase_profile(step_state, steps=2, top=15):
     for a in sorted(ops, key=lambda a: -getattr(a, attr))[:top]:
         print(f"#   op {getattr(a, attr) / steps / 1e3:9.3f} ms/step "
               f"x{a.count // steps:<5d} {a.key}")
+    # the payload gathers' backward, by gather size (bucket vs dense K5)
+    for a in prof.key_averages(group_by_input_shape=True):
+        if a.key == "aten::embedding_dense_backward":
+            print(f"#   gather backward {getattr(a, attr) / steps / 1e3:9.3f} "
+                  f"ms/step x{a.count // steps:<3d} shapes "
+                  f"{a.input_shapes[:2]}")
+    return state
 
 
-@torch.no_grad()
-def phase_real(tr, rec, rates):
-    """Kernels vs twins on the real step inputs + times + bounds."""
-    bw, peak = rates
-    errs = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}
-    for b, (fa, ba) in enumerate(zip(rec["fwd"], rec["bwd"])):
-        fcut = tuple(x[:64] if torch.is_tensor(x) else x for x in fa)
-        bcut = tuple(x[:64] if torch.is_tensor(x) else x for x in ba)
-        e, r = compare_fwd(tr, fcut)
-        check(r <= FWD_TOL, f"real bucket {b} forward: {r:.3e}")
-        errs["fwd"] = [max(errs["fwd"][0], e), max(errs["fwd"][1], r)]
-        e2, r2 = compare_bwd(tr, bcut)
-        check(r2 <= BWD_TOL, f"real bucket {b} backward: {r2:.3e}")
-        errs["bwd"] = [max(errs["bwd"][0], e2), max(errs["bwd"][1], r2)]
-        print(f"# real bucket {b} {tuple(fa[0].shape)}: fwd err {e:.3e} "
-              f"(rel {r:.3e}), bwd err {e2:.3e} (rel {r2:.3e})")
-
-    launch_f = lambda: [tr.window_fwd_cuda(*a) for a in rec["fwd"]]
-    launch_b = lambda: [tr.window_bwd_cuda(*a) for a in rec["bwd"]]
-    ms_f = cuda_ms(launch_f, 10)
-    ms_b = cuda_ms(launch_b, 10)
-    plain_f = cuda_ms(lambda: [tr.composite_window_plain(*a)
-                               for a in rec["fwd"]], 1)
-    plain_b = cuda_ms(lambda: [tr.composite_window_bwd_plain(*a)
-                               for a in rec["bwd"]], 1)
-    pairs = live = 0
-    nchan = rec["fwd"][0][5]
-    by_f = by_b = 0
-    for fa, ba in zip(rec["fwd"], rec["bwd"]):
-        acc, tf, work = tr.composite_window_plain(*fa, return_work=True)
-        pairs += work["pairs"]
-        live += work["live"]
-        by_f += nbytes(*fa[:4], acc, tf)
-        gd, gs = tr.window_bwd_cuda(*ba)
-        by_b += nbytes(*ba[:8], gd, gs)
-    ops_f = OPS_PAIR * pairs + (2 * nchan + 3) * live
-    ops_b = OPS_PAIR * pairs + (4 * nchan + 36) * live
-    bounds = {}
-    for k, by, ops in (("fwd", by_f, ops_f), ("bwd", by_b, ops_b)):
-        t_bytes, t_ops = by / bw * 1e3, ops / peak * 1e3
-        bounds[k] = (max(t_bytes, t_ops),
-                     "bytes" if t_bytes >= t_ops else "operations")
-        print(f"# {k}: {by / 1e9:.3f} GB -> {t_bytes:.4f} ms; "
-              f"{ops / 1e9:.2f} Gop -> {t_ops:.4f} ms; pairs {pairs}, "
-              f"live {live}")
-    torch.cuda.synchronize()
-    return errs, {"fwd": ms_f, "bwd": ms_b}, \
-        {"fwd": plain_f, "bwd": plain_b}, bounds
-
-
-def phase_small_vs_cpu(gpu="cuda"):
-    """Two small-scene train steps on the card vs the CPU path."""
-    from deblur4dgs_tpu_torch import configs as C
-    from deblur4dgs_tpu_torch.convert import jax_key, scene_from_numpy
+def small_inputs(wh, kind):
+    """A small seeded scene (numpy arrays by JAX pytree path) and the
+    batches of the ``kind`` step (STEP_KINDS) as numpy tuples."""
+    from deblur4dgs_tpu_torch.convert import jax_key
     from deblur4dgs_tpu_torch.models.move_model import init_move_model
-    from deblur4dgs_tpu_torch.train import trainer as TT
-    from deblur4dgs_tpu_torch.train.optimizers import make_optimizer
 
+    Ws, Hs = wh
     rng = np.random.default_rng(5)
     arrays = {}
     for part, n in (("fg", 120), ("bg", 180)):
@@ -472,47 +709,98 @@ def phase_small_vs_cpu(gpu="cuda"):
         key, tr_ = jax_key("move." + name)
         a = x.detach().numpy()
         arrays[key] = a.T if tr_ else a
-    K = np.array([[110.0, 0, 64], [0, 110.0, 64], [0, 0, 1]], np.float32)
+    f = 110.0 * Ws / 128
+    K = np.array([[f, 0, Ws / 2], [0, f, Hs / 2], [0, 0, 1]], np.float32)
     eye = np.eye(4, dtype=np.float32)
-    frame = (np.array([5], np.int32), eye[None], K[None],
-             rng.uniform(0, 1, (1, 128, 128, 3)).astype(np.float32),
-             (rng.uniform(size=(1, 128, 128)) < 0.3).astype(np.float32),
-             np.ones((1, 128, 128), np.float32),
-             rng.uniform(2, 8, (1, 128, 128)).astype(np.float32))
-    tracks = (rng.integers(0, 128, (64, 2)).astype(np.float32),
+
+    def frames(ts, rect):
+        B = len(ts)
+        if rect:
+            masks = np.zeros((B, Hs, Ws), np.float32)
+            masks[:, Hs // 4 : Hs // 2, Ws // 4 : Ws // 2] = 1.0
+        else:
+            masks = (rng.uniform(size=(B, Hs, Ws)) < 0.3).astype(np.float32)
+        w2cs = np.tile(eye, (B, 1, 1))
+        w2cs[:, 0, 3] = 0.02 * (np.arange(B) - B // 2)
+        return (np.asarray(ts, np.int32), w2cs, np.tile(K, (B, 1, 1)),
+                rng.uniform(0, 1, (B, Hs, Ws, 3)).astype(np.float32), masks,
+                np.ones((B, Hs, Ws), np.float32),
+                rng.uniform(2, 8, (B, Hs, Ws)).astype(np.float32))
+
+    dyn = frames([5], rect=False)
+    tracks = (np.stack([rng.integers(0, Ws, 64), rng.integers(0, Hs, 64)],
+                       -1).astype(np.float32),
               np.array([4, 6], np.int32), np.tile(eye, (2, 1, 1)),
               np.tile(K, (2, 1, 1)),
-              rng.uniform(0, 128, (2, 64, 2)).astype(np.float32),
+              rng.uniform(0, Ws, (2, 64, 2)).astype(np.float32),
               np.ones((2, 64), np.float32), np.ones((2, 64), np.float32),
               rng.uniform(2, 8, (2, 64)).astype(np.float32))
-    results = {}
-    for dev in (gpu, "cpu"):
+    if kind == "dynamic":
+        return arrays, (None, dyn, tracks, None, None)
+    static = frames([4, 5, 6], rect=True)
+    reg = frames([5], rect=True)
+    b4 = rng.uniform(0, 1, (1, Hs // 4, Ws // 4, 3)).astype(np.float32)
+    return arrays, step_args(kind, static, dyn, tracks, reg, b4)
+
+
+def phase_small_vs_cpu(tr, errs, rates, wh=(128, 128), kind="dynamic",
+                       expected=None, record=None):
+    """(d) Two small-scene train steps (``kind`` of STEP_KINDS) on the card
+    vs the CPU path. The card's run is counted (counters zeroed before,
+    read after) and must launch ``expected`` kernels per step; ``record``
+    names a compositor whose calls are timed and held against their
+    twins."""
+    from deblur4dgs_tpu_torch import configs as C
+    from deblur4dgs_tpu_torch.convert import scene_from_numpy
+    from deblur4dgs_tpu_torch.train import trainer as TT
+
+    arrays, inputs = small_inputs(wh, kind)
+    kinds = (TT.FrameBatch, TT.FrameBatch, TT.TrackBatch, TT.FrameBatch,
+             None)
+    label = f"{kind} step {wh[0]}x{wh[1]}"
+    results, rec, launches = {}, None, None
+    for dev in (DEV, "cpu"):
         scene = scene_from_numpy(arrays, device=dev)
-        rcfg = C.RenderConfig(num_exposure=3, tile_cap=256)
-        state = TT.init_train_state(scene, C.SceneLRConfig(),
-                                    C.OptimizerConfig())
-        step = TT.make_train_step(
-            make_optimizer(scene, C.SceneLRConfig(), C.OptimizerConfig()),
-            C.LossesConfig(), rcfg, "second", 8, has_static=False,
-            has_dynamic=True, has_reg=False)
-        fb = TT.FrameBatch(*(torch.as_tensor(x, device=dev) for x in frame))
-        tb = TT.TrackBatch(*(torch.as_tensor(x, device=dev) for x in tracks))
+        state, step = make_step(kind, scene, 8,
+                                C.RenderConfig(num_exposure=3, tile_cap=256))
+        conv = lambda x: torch.as_tensor(x, device=dev)
+        args = [None if x is None else
+                (conv(x) if kind is None else kind(*map(conv, x)))
+                for kind, x in zip(kinds, inputs)]
         out = []
-        for _ in range(2):
-            state, loss, aux = step(state, 25, None, fb, tb, None, None)
-            out.append((float(loss), {k: v.cpu().numpy()
-                                      for k, v in aux["dynamic"].items()}))
+        with contextlib.ExitStack() as stack:
+            if dev == DEV:
+                zero_launches(tr)
+                if record:
+                    rec = stack.enter_context(recording(tr, record))
+            for _ in range(2):
+                state, loss, aux = step(state, EPOCH, *args)
+                out.append((float(loss), {
+                    f"{b}.{k}": v.cpu().numpy()
+                    for b, a in aux.items() for k, v in a.items()}))
+            if dev == DEV:
+                torch.cuda.synchronize()
+                launches = dict(tr.LAUNCHES)
         results[dev] = out
+    print(f"# {label}, card launches over 2 steps: {launches}")
+    for k in tr.LAUNCHES:
+        want = (expected or {}).get(k, 0) * 2
+        check(launches[k] == want,
+              f"{label}: {k} launched {launches[k]} times, expected {want}")
     worst = 0.0
-    for (lc, ac), (lp, ap) in zip(results[gpu], results["cpu"]):
+    for (lc, ac), (lp, ap) in zip(results[DEV], results["cpu"]):
         worst = max(worst, abs(lc - lp) / abs(lp))
         for k in ap:
-            if k == "radii":  # ceil(3 sigma) may flip by 1 px at an integer
+            if k.endswith("radii"):  # ceil(3 sigma) may flip by 1 px
                 continue
             d = np.abs(ac[k] - ap[k]).max() / (np.abs(ap[k]).max() + 1e-12)
-            check(d <= 1e-4, f"small scene aux {k}: rel diff {d:.3e}")
-    print(f"# small scene, card vs CPU: loss rel diff {worst:.3e}")
-    check(worst <= 1e-5, f"small scene loss rel diff {worst:.3e}")
+            check(d <= 1e-4, f"{label} aux {k}: rel diff {d:.3e}")
+    print(f"# {label}, card vs CPU: loss rel diff {worst:.3e}")
+    check(worst <= 1e-5, f"{label}: loss rel diff {worst:.3e}")
+    if record:  # the first of the two steps' calls: times are per step
+        rec = {k: v[: len(v) // 2] for k, v in rec.items()}
+        return launches, measure(tr, errs, record, rec, rates)
+    return launches
 
 
 def main():
@@ -547,45 +835,82 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"#   {line.strip()}")
 
-    rand_errs = phase_random(tr, "cuda")
-    times, launches, rec, step_state = phase_bench(tr)
-    phase_profile(step_state)
-    del step_state
-    real_errs, ms, plain_ms, bounds = phase_real(tr, rec, rates)
-    del rec
-    torch.cuda.empty_cache()
-    phase_small_vs_cpu()
+    errs = Errs()
+    caps = (128, 256, 512, 1024)
+    phase_random(tr, errs, "window", [  # nchan 11: dynamic, 5: static
+        (f"cap={c} nchan={nchan}",
+         random_bucket(i + (0 if nchan == 11 else 40), 64, NUM_EXPOSURE,
+                       nchan, c, 80, 3600, DEV) + (80, nchan, True))
+        for nchan in (11, 5) for i, c in enumerate(caps)])
+    phase_random(tr, errs, "dense", [  # (a)
+        (f"cap={c} D={d}", random_dense(10 * d + i, 64, d, c, 80, DEV)
+         + (80, d))
+        for d in (4, 5) for i, c in enumerate(caps)])
+    split_cases = []  # (b)
+    for nchan in (11, 5):
+        for i, c in enumerate(caps):
+            dyn, st, counts, ids = random_bucket(20 + i + nchan, 64, 1, nchan,
+                                                 c, 80, 3600, DEV)
+            split_cases.append((f"cap={c} nchan={nchan}",
+                                (dyn[:, 0], st, counts, ids, 80, nchan,
+                                 True)))
+    phase_random(tr, errs, "split", split_cases)
+
+    dyn_times, dyn_launches, _ = phase_bench(tr, errs, rates)
+    s2_times, s2_launches, win, dense = phase_stage2(tr, errs, rates)
+    s1_times, s1_launches = phase_stage1(tr)
+    phase_small_vs_cpu(tr, errs, rates, expected={
+        "window_fwd": 2, "window_bwd": 2})
+    phase_small_vs_cpu(tr, errs, rates, kind="stage2", expected={
+        "window_fwd": 8, "window_bwd": 8, "dense_fwd": 1, "dense_bwd": 1})
+    split_launches, split = phase_small_vs_cpu(
+        tr, errs, rates, wh=(64, 48), kind="stage2", record="split",
+        expected={"split_fwd": 3 * 4, "split_bwd": 3 * 4, "dense_fwd": 1,
+                  "dense_bwd": 1})
+    phase_small_vs_cpu(tr, errs, rates, wh=(64, 48), kind="stage1",
+                       expected={"split_fwd": 3 * 3, "split_bwd": 3 * 3})
 
     kernels = []
-    for key, name_k, src_fn, replaces in (
-        ("fwd", "window_fwd", "window_fwd_kernel",
-         "deblur4dgs_tpu/ops/rasterize.py:989"),
-        ("bwd", "window_bwd", "window_bwd_kernel",
-         "deblur4dgs_tpu/ops/rasterize.py:1220"),
+    full = "stage-2 step 1280x720"
+    for kind, (ms, plain, bounds), launches, path, timed_on in (
+        ("window", win, s2_launches, f"{full}, {TIMED_STEPS} steps",
+         f"{full}, its 16 window calls"),
+        ("dense", dense, s2_launches, f"{full}, {TIMED_STEPS} steps",
+         f"{full}, its static-reg call"),
+        ("split", split, split_launches, "stage-2 step 64x48, 2 steps",
+         "stage-2 step 64x48, its 12 calls"),
     ):
-        kernels.append({
-            "name": name_k,
-            "route": "cuda",
-            "source": f"deblur4dgs_tpu_torch/csrc/window_composite.cu "
-                      f"({src_fn})",
-            "replaces": replaces,
-            **({"also_replaces": "deblur4dgs_tpu/ops/rasterize.py:1049"}
-               if key == "bwd" else {}),
-            "launches": launches[f"window_{key}"],
-            "max_abs_err": max(rand_errs[key][0], real_errs[key][0]),
-            "max_rel_err": max(rand_errs[key][1], real_errs[key][1]),
-            "ms": ms[key],
-            "plain_ms": plain_ms[key],
-            "bound_ms": bounds[key][0],
-            "bound_by": bounds[key][1],
-            "library_ms": None,
-        })
+        for d in ("fwd", "bwd"):
+            k = f"{kind}_{d}"
+            line, tpu_fn, src, fn = KERNEL_INFO[k]
+            kernels.append({
+                "name": k,
+                "route": "cuda",
+                "source": f"deblur4dgs_tpu_torch/csrc/{src}",
+                "kernel": fn,
+                "replaces": f"deblur4dgs_tpu/ops/rasterize.py:{line}",
+                "replaces_fn": tpu_fn,
+                "launches": launches[k],
+                "launches_path": path,
+                "timed_on": timed_on,
+                "max_abs_err": errs.v[k][0],
+                "max_rel_err": errs.v[k][1],
+                "ms": ms[d],
+                "plain_ms": plain[d],
+                "bound_ms": bounds[d][0],
+                "bound_by": bounds[d][1],
+                "library_ms": None,
+            })
     print(json.dumps({"kernels": kernels}))
-    med = statistics.median(times)
-    print(f"# train step (1280x720, 100k Gaussians, S=11, cap 1024): median "
-          f"{med * 1e3:.3f} ms over {len(times)} steps, "
-          f"{W * H / med:.1f} rays/s; card {card}; total run "
-          f"{time.time() - t_start:.1f} s")
+    print(f"# dynamic-step launches over {TIMED_STEPS} steps: "
+          f"{dyn_launches}; stage-1 step: {s1_launches}")
+    for label, times in (("dynamic", dyn_times), ("stage-2", s2_times),
+                         ("stage-1", s1_times)):
+        med = statistics.median(times)
+        print(f"# {label} train step (1280x720, 100k Gaussians, S=11, cap "
+              f"1024): median {med * 1e3:.3f} ms over {len(times)} steps, "
+              f"{W * H / med:.1f} rays/s; card {card}")
+    print(f"# total run {time.time() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -4,6 +4,9 @@
 //   forward  -> K1 _fwd_kernel_window (rasterize.py:989)
 //   backward -> K2 _bwd_kernel_window_sgrid (rasterize.py:1220) and
 //               K3 _bwd_kernel_window (rasterize.py:1049)
+// and, launched with S = 1, the split compositor K4 (_fwd_kernel_split
+// :548, _bwd_kernel_split :608), which is K1/K2 with one sub-frame in the
+// same layout (ops/rasterize.py::split_fwd_cuda / split_bwd_cuda).
 // The plain PyTorch twins composite_window_plain / composite_window_bwd_plain
 // (deblur4dgs_tpu_torch/ops/rasterize.py) compute the same numbers with the
 // same loop semantics; chip_smoke.py holds each kernel against its twin.
@@ -46,8 +49,9 @@
 // sub-frames is unordered (tolerance: float32 reassociation of S terms).
 //
 // What bounds it on an H100. At the bench shape (1280x720, S=11, 4 buckets
-// of 1.16M slots) a step's forward moves 0.90 GB and the backward 1.80 GB
-// (each input read once, each output written once): 0.27 / 0.54 ms at
+// of 1.16M slots) a step's forward moves 0.69 GB and the backward 1.59 GB
+// (the payload slots before each (row, sub-frame)'s stop chunk, every
+// other input read once, each output written once): 0.21 / 0.47 ms at
 // 3.35 TB/s. The work is larger: 1.58G (pixel, Gaussian) pairs up to each
 // row's stop chunk, 333M of them live, ~20 FP32 ops per pair for alpha plus
 // 2*nchan+3 (forward) or 4*nchan+36 (backward) per live pair: 0.60 / 0.87 ms
@@ -62,57 +66,13 @@
 
 #include <cuda_runtime.h>
 
+#include "composite_common.cuh"
+
 namespace {
 
-constexpr int TILE = 16;
-constexpr int P = TILE * TILE;
-constexpr int CHUNK = 128;
-constexpr int NWARPS = P / 32;
+using namespace d4gs;
+
 constexpr int MAX_FD = 7;
-constexpr float ALPHA_CLAMP = 0.999f;
-constexpr float ALPHA_CUTOFF = 1.0f / 255.0f;
-constexpr float EARLY_STOP_T = 1e-4f;
-
-struct AlphaOut {
-  float alpha, dx, dy;
-  bool live, active;
-};
-
-// _alpha_from_split (rasterize.py:513) with round-to-nearest intrinsics, so
-// the forward and backward kernels compute bit-identical alphas and T.
-__device__ __forceinline__ AlphaOut alpha_at(float mx, float my, float ca,
-                                             float cb, float cc, float r,
-                                             float op, float px, float py) {
-  AlphaOut o;
-  o.dx = __fsub_rn(px, mx);
-  o.dy = __fsub_rn(py, my);
-  const float axx = __fmul_rn(__fmul_rn(ca, o.dx), o.dx);
-  const float cyy = __fmul_rn(__fmul_rn(cc, o.dy), o.dy);
-  const float bxy = __fmul_rn(__fmul_rn(cb, o.dx), o.dy);
-  const float sigma = __fadd_rn(__fmul_rn(0.5f, __fadd_rn(axx, cyy)), bxy);
-  const float a_raw = __fmul_rn(op, expf(-fmaxf(sigma, 0.0f)));
-  const bool inbox = fabsf(o.dx) <= r && fabsf(o.dy) <= r;
-  o.live = inbox && sigma >= 0.0f && a_raw >= ALPHA_CUTOFF;
-  o.active = o.live && a_raw < ALPHA_CLAMP;
-  o.alpha = o.live ? fminf(a_raw, ALPHA_CLAMP) : 0.0f;
-  return o;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Stage chunk columns [off, off + CHUNK) of `rows` rows of a (rows, cap)
-// slab into shared memory laid out (rows, CHUNK).
-__device__ __forceinline__ void stage(float* dst, const float* src, int rows,
-                                      int cap, int off) {
-  for (int i = threadIdx.x; i < rows * CHUNK; i += P) {
-    const int f = i / CHUNK, g = i % CHUNK;
-    dst[i] = src[(size_t)f * cap + off + g];
-  }
-}
 
 template <int MAXC>
 __global__ void __launch_bounds__(P)
@@ -127,10 +87,8 @@ window_fwd_kernel(const int* __restrict__ tile_ids,
   const int s = blockIdx.x, t = blockIdx.y, p = threadIdx.x;
   const int count = min(counts[t], cap);
   const int tile = tile_ids[t];
-  const float px =
-      (float)((tile % tiles_x) * TILE) + (float)(p % TILE) + 0.5f;
-  const float py =
-      (float)((tile / tiles_x) * TILE) + (float)(p / TILE) + 0.5f;
+  float px, py;
+  pixel_centre(tile, tiles_x, p, &px, &py);
   const int n_static = nchan - depth_in_dyn;
   const size_t row = (size_t)t * S + s;
   const float* d_row = dyn + row * Fd * cap;
@@ -194,10 +152,8 @@ window_bwd_kernel(const int* __restrict__ tile_ids,
   const int lane = p & 31, warp = p >> 5;
   const int count = min(counts[t], cap);
   const int tile = tile_ids[t];
-  const float px =
-      (float)((tile % tiles_x) * TILE) + (float)(p % TILE) + 0.5f;
-  const float py =
-      (float)((tile / tiles_x) * TILE) + (float)(p / TILE) + 0.5f;
+  float px, py;
+  pixel_centre(tile, tiles_x, p, &px, &py);
   const int n_static = nchan - depth_in_dyn;
   const int nv = 6 + nchan;
   const size_t row = (size_t)t * S + s;

@@ -1,18 +1,26 @@
 """Scene model: composed fg/bg Gaussians + motion bases + exposure model.
 
-PyTorch port of deblur4dgs_tpu/models/scene.py. ``render(mode="blury")``
-samples the learned exposure window (S sub-frame residual poses + times),
-deforms the canonical Gaussians to every sub-frame time, projects all S
-sub-frames at once, bins them once for the whole window (exposure-shared
-binning), packs count-sorted tile buckets and composites the window in tile
-space (ops/rasterize.py::composite_window_buckets).
+PyTorch port of deblur4dgs_tpu/models/scene.py. ``render`` samples the
+learned exposure window (S sub-frame residual poses + times; S = 1 for the
+sharp modes 'mid' / 'start' / 'end'), deforms the canonical Gaussians to
+every sub-frame time and projects all S sub-frames at once. Then one of
+three compositing paths, as in the reference:
+  * S > 1, shared binning, bucketed, >= 64 tiles: one binning sort for the
+    window, count-sorted tile buckets, the window compositor (K1, K2/K3)
+    in tile space (ops/rasterize.py::composite_window_buckets);
+  * S > 1, shared binning, under 64 tiles or bucketed=False: the same
+    sort as dense tile lists, one payload gather for the window, and the
+    split compositor (K4) per sub-frame (rasterize_split);
+  * S = 1, or per-sub-frame binning: each view binned and composited on
+    its own by the dense compositor (K5) (rasterize).
+The per-sub-frame paths accumulate the exposure reductions in an unrolled
+loop, as the reference's single-chip path does.
 
 Channel multiplexing matches the reference: [RGB(3) | mask(1)? |
 tracks(3B)? | depth(1)?] composited in one pass; blurry mask = max over
 sub-frames, blurry depth = min over sub-frames, everything else = mean.
-
-Ported: the shared-binning bucketed branch (images of >= 64 tiles). The
-other branches raise NotImplementedError naming the slice that brings them.
+Not ported (raise NotImplementedError): subframe_sharding and tile_mesh
+(the multi-device slice) and use_pallas=False.
 """
 
 from __future__ import annotations
@@ -28,13 +36,20 @@ from deblur4dgs_tpu_torch.models.motion_bases import (
 )
 from deblur4dgs_tpu_torch.models.move_model import MoveModel, exposure_samples
 from deblur4dgs_tpu_torch.ops import lie
-from deblur4dgs_tpu_torch.ops.projection import project
-from deblur4dgs_tpu_torch.ops.rasterize import composite_window_buckets
+from deblur4dgs_tpu_torch.ops.projection import Projected, project
+from deblur4dgs_tpu_torch.ops.rasterize import (
+    composite_window_buckets,
+    rasterize,
+    rasterize_split,
+)
 from deblur4dgs_tpu_torch.ops.tiling import (
+    bin_gaussians_union,
     bin_gaussians_union_runs,
     bucket_tiles_from_runs,
     default_bucket_spec,
     num_tiles,
+    pack_dyn_all,
+    pack_static,
     pack_window_fused,
     packed_dyn_table,
     packed_static_table,
@@ -138,22 +153,20 @@ def render(
     camera_mode: str = "linear",
     max_tiles_per_gauss: int = 32,
 ) -> dict:
-    """Blurry render of one frame: the mean of S exposure sub-frames.
+    """Render one frame: the mean of S exposure sub-frames ('blury') or
+    one sharp sub-frame ('mid' / 'start' / 'end').
 
     ``means2d_tap`` is added to every sub-frame's projected means2d; pass a
     zeros leaf with ``requires_grad=True`` and its ``.grad`` after backward
     is dL/d(means2d) per sub-frame (the density-control statistic).
-    ``use_pallas`` selects the compositor kernels (CUDA on a card, their
-    plain twins on CPU); the reference's no-early-stop path is not ported.
+    ``tile_overflow`` is NaN on the paths that do not measure it (S = 1
+    and per-sub-frame binning), as in the reference.
     """
     assert not (fg_only and bg_only)
     W, H = img_wh
     tiles_x, tiles_y = num_tiles(img_wh)
-    if mode != "blury":
-        raise NotImplementedError(
-            f"render(mode={mode!r}): the sharp S=1 renders go through the "
-            "dense compositor K5 (rasterize), ported in a later slice"
-        )
+    if mode not in ("blury", "mid", "start", "end"):
+        raise ValueError(f"unknown render mode {mode!r}")
     if subframe_sharding is not None or tile_mesh is not None:
         raise NotImplementedError(
             "subframe_sharding / tile_mesh belong to the multi-device slice"
@@ -161,15 +174,8 @@ def render(
     if not use_pallas:
         raise NotImplementedError(
             "use_pallas=False (the reference's no-early-stop XLA path) is "
-            "not ported; the window compositor always runs the kernels or "
-            "their twins"
-        )
-    if not (shared_exposure_binning and num_exposure > 1 and bucketed
-            and tiles_x * tiles_y >= 64):
-        raise NotImplementedError(
-            "only the shared-binning bucketed window path (S > 1, >= 64 "
-            "tiles) is ported; per-sub-frame binning and the small-image "
-            "split compositor (K4, rasterize_split) come in a later slice"
+            "not ported; the compositors always run the kernels or their "
+            "twins"
         )
     dev = w2c.device
 
@@ -179,7 +185,7 @@ def render(
     # --- exposure window ---------------------------------------------------
     samples = exposure_samples(
         scene.move, w2c, 0.0 if t is None else t, num_exposure, stage=stage,
-        mode="uniform", camera_mode=camera_mode,
+        mode="uniform" if mode == "blury" else mode, camera_mode=camera_mode,
     )
     S = samples.poses.shape[0]
 
@@ -233,35 +239,71 @@ def render(
     if means2d_tap is not None:
         projs = projs._replace(means2d=projs.means2d + means2d_tap)
 
-    # --- shared binning + count-sorted buckets ----------------------------
-    rank_sorted, starts, _, raw, order = bin_gaussians_union_runs(
-        projs, img_wh, cap, max_tiles_per_gauss=max_tiles_per_gauss,
-    )
-    spec = default_bucket_spec(tiles_x * tiles_y, cap)
-    buckets = bucket_tiles_from_runs(rank_sorted, starts, raw, N, spec)
-    # Fraction of tile-Gaussian intersections dropped by capacity truncation.
-    kept = sum(c.sum() for c in buckets.counts)
-    tile_overflow = 1.0 - kept.float() / torch.clamp(raw.sum(), min=1).float()
-    # Combined dyn+static payload table: one gather per bucket (and one
-    # scatter-add in the backward).
-    tbl = torch.cat(
-        [
-            packed_dyn_table(projs, order, return_depth),
-            packed_static_table(opacities, const_chans, order),
-        ],
-        dim=1,
-    )
-    Fd = 7 if return_depth else 6
-    packed_lists = [pack_window_fused(gi, tbl, S, Fd)
-                    for gi in buckets.gather_idx]
-    window_out = composite_window_buckets(
-        buckets, [p[1] for p in packed_lists], [p[0] for p in packed_lists],
-        background, img_wh,
-        include_depth=return_depth,
-        mask_channel=3 if return_mask else None,
-        stack_subframes=return_exposure_stack,
-        stack_mask=return_exposure_stack and return_mask,
-    )
+    tile_overflow = torch.full((), float("nan"), device=dev)
+    if (shared_exposure_binning and S > 1 and bucketed
+            and tiles_x * tiles_y >= 64):
+        # --- shared binning + count-sorted buckets ------------------------
+        rank_sorted, starts, _, raw, order = bin_gaussians_union_runs(
+            projs, img_wh, cap, max_tiles_per_gauss=max_tiles_per_gauss,
+        )
+        spec = default_bucket_spec(tiles_x * tiles_y, cap)
+        buckets = bucket_tiles_from_runs(rank_sorted, starts, raw, N, spec)
+        # Fraction of tile-Gaussian intersections dropped by capacity
+        # truncation.
+        kept = sum(c.sum() for c in buckets.counts)
+        tile_overflow = 1.0 - kept.float() / torch.clamp(raw.sum(),
+                                                         min=1).float()
+        # Combined dyn+static payload table: one gather per bucket (and one
+        # scatter-add in the backward).
+        tbl = torch.cat(
+            [
+                packed_dyn_table(projs, order, return_depth),
+                packed_static_table(opacities, const_chans, order),
+            ],
+            dim=1,
+        )
+        Fd = 7 if return_depth else 6
+        packed_lists = [pack_window_fused(gi, tbl, S, Fd)
+                        for gi in buckets.gather_idx]
+        window_out = composite_window_buckets(
+            buckets, [p[1] for p in packed_lists], [p[0] for p in packed_lists],
+            background, img_wh,
+            include_depth=return_depth,
+            mask_channel=3 if return_mask else None,
+            stack_subframes=return_exposure_stack,
+            stack_mask=return_exposure_stack and return_mask,
+        )
+    else:
+        if shared_exposure_binning and S > 1:
+            # One sort for the window as dense tile lists; the static
+            # payload and every sub-frame's screen rows gathered once.
+            shared = bin_gaussians_union(
+                projs, img_wh, cap, max_tiles_per_gauss=max_tiles_per_gauss,
+            )
+            tile_overflow = 1.0 - shared[1].sum().float() / torch.clamp(
+                shared[2].sum(), min=1).float()
+            st_data = pack_static(opacities, const_chans, shared[0],
+                                  shared[3])
+            dyn_all = pack_dyn_all(projs, shared[0], shared[3], return_depth)
+
+            def composite(s):
+                return rasterize_split(
+                    st_data, dyn_all[s], shared[1], background, img_wh,
+                    include_depth=return_depth,
+                )
+        else:
+
+            def composite(s):
+                proj = Projected(*(x[s] for x in projs))
+                ch = const_chans
+                if return_depth:
+                    ch = torch.cat([ch, proj.depths[:, None]], dim=-1)
+                img, alpha, _ = rasterize(proj, opacities, ch, background,
+                                          img_wh, cap=cap)
+                return img, alpha
+
+        window_out = _accumulate_subframes(composite, S, (H, W, D), dev,
+                                           return_mask, return_depth)
 
     avg = window_out["sum_img"] / S
     acc = window_out["sum_alpha"] / S
@@ -296,3 +338,42 @@ def render(
     out["radii"] = projs.radii  # (S, N) per-sub-frame screen radii
     out["tile_overflow"] = tile_overflow
     return out
+
+
+def _accumulate_subframes(composite, S, hwd, dev, return_mask,
+                          return_depth):
+    """The reference's unrolled per-sub-frame accumulate loop over
+    ``composite(s) -> (img (H, W, D), alpha (H, W))``: sum of images and
+    alphas, max of the mask channel, min of the expected depth (the depth
+    channel normalized by alpha), and per-sub-frame rgb / alpha / mask
+    stacks. Same keys as composite_window_buckets."""
+    H, W, D = hwd
+    sum_img = torch.zeros((H, W, D), device=dev)
+    sum_alpha = torch.zeros((H, W), device=dev)
+    max_mask = torch.full((H, W, 1), -float("inf"), device=dev)
+    min_depth = torch.full((H, W, 1), float("inf"), device=dev)
+    rgbs, alphas, masks = [], [], []
+    for s in range(S):
+        img, alpha = composite(s)
+        if return_depth:
+            # expected depth (gsplat RGB+ED): normalize by alpha
+            dch = img[..., -1:] / torch.clamp(alpha[..., None], min=1e-10)
+            img = torch.cat([img[..., :-1], dch], dim=-1)
+        sum_img = sum_img + img
+        sum_alpha = sum_alpha + alpha
+        if return_mask:
+            max_mask = torch.maximum(max_mask, img[..., 3:4])
+            masks.append(img[..., 3:4])
+        if return_depth:
+            min_depth = torch.minimum(min_depth, img[..., -1:])
+        rgbs.append(img[..., :3])
+        alphas.append(alpha)
+    return {
+        "sum_img": sum_img,
+        "sum_alpha": sum_alpha,
+        "max_mask": max_mask if return_mask else None,
+        "min_depth": min_depth if return_depth else None,
+        "rgb_stack": torch.stack(rgbs),
+        "alpha_stack": torch.stack(alphas),
+        "mask_stack": torch.stack(masks) if return_mask else None,
+    }

@@ -1,16 +1,18 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) with nvcc + ctypes.
 
 No counterpart in the JAX package. On first use, every ``csrc/*.cu`` file is
-compiled for Hopper (``sm_90a``) into one shared library with a plain C
-interface:
+compiled for Hopper (``sm_90a``) by its own nvcc process, all started
+together, and the objects are linked into one shared library with a plain
+C interface:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/kernels/libd4gs_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c csrc/<name>.cu -o build/kernels/<name>.o
+    nvcc -shared -o build/kernels/libd4gs_kernels.so build/kernels/*.o
 
 The library lands in ``build/kernels/`` at the repository root (listed in
-.gitignore) next to a stamp holding the sources' hash; it is rebuilt when
-any source changes. Only the CUDA branches of the wrappers import this
-module, so CPU runs never look for nvcc.
+.gitignore) next to a stamp holding the sources' hash (``*.cu`` and
+``*.cuh``); it is rebuilt when any source changes. Only the CUDA branches
+of the wrappers import this module, so CPU runs never look for nvcc.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ def _sources() -> list[Path]:
 
 def _hash(srcs: list[Path]) -> str:
     h = hashlib.sha256(" ".join(ARCH_FLAGS).encode())
-    for src in srcs:
+    for src in srcs + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()
@@ -63,6 +65,19 @@ def _nvcc() -> str:
     raise FileNotFoundError("nvcc not found (set CUDA_HOME or put it on PATH)")
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands concurrently; raise with its output if any fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{log}")
+    return "".join(logs)
+
+
 def build(verbose_ptxas: bool = False) -> Path:
     """Compile csrc/*.cu into BUILD_DIR/LIB_NAME unless the stamp matches."""
     srcs = _sources()
@@ -73,22 +88,24 @@ def build(verbose_ptxas: bool = False) -> Path:
         BUILD_INFO.update(built=False, seconds=0.0, log="")
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-o", str(tmp), *map(str, srcs)]
-    if verbose_ptxas:
-        cmd[1:1] = ["-Xptxas", "-v"]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [BUILD_DIR / f".{src.stem}.{tag}.o" for src in srcs]
+    ptxas = ["-Xptxas", "-v"] if verbose_ptxas else []
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
+    log = _run_all([
+        [nvcc, *ptxas, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler",
+         "-fPIC", "-c", str(src), "-o", str(obj)]
+        for src, obj in zip(srcs, objs)
+    ])
+    tmp = BUILD_DIR / f".{LIB_NAME}.{tag}"
+    log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                      *map(str, objs)]])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, lib_path)
     stamp.write_text(digest)
-    BUILD_INFO.update(built=True, seconds=time.time() - t0,
-                      log=proc.stdout + proc.stderr)
+    BUILD_INFO.update(built=True, seconds=time.time() - t0, log=log)
     return lib_path
 
 
@@ -103,6 +120,10 @@ def load(verbose_ptxas: bool = False):
     lib.d4gs_window_fwd.restype = i
     lib.d4gs_window_bwd.argtypes = [vp] * 10 + [i] * 8 + [vp]
     lib.d4gs_window_bwd.restype = i
+    lib.d4gs_dense_fwd.argtypes = [vp] * 4 + [i] * 5 + [vp]
+    lib.d4gs_dense_fwd.restype = i
+    lib.d4gs_dense_bwd.argtypes = [vp] * 7 + [i] * 5 + [vp]
+    lib.d4gs_dense_bwd.restype = i
     lib.d4gs_error_string.argtypes = [i]
     lib.d4gs_error_string.restype = ctypes.c_char_p
     _lib = lib

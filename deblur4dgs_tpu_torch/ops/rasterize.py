@@ -1,32 +1,39 @@
-"""Exposure-window tile compositor: CUDA kernels + their plain PyTorch twins.
+"""Tile compositors: CUDA kernels + their plain PyTorch twins.
 
-PyTorch port of the window path of deblur4dgs_tpu/ops/rasterize.py. One
-bucket row is image tile ``tile_ids[t]`` (16x16 = P pixels, centres at
-+0.5) with ``counts[t]`` depth-ordered Gaussians, composited front to back
-for each of the S exposure sub-frames:
+PyTorch port of deblur4dgs_tpu/ops/rasterize.py. One tile row is image
+tile ``tile_ids[t]`` (16x16 = P pixels, centres at +0.5) with ``counts[t]``
+depth-ordered Gaussians, composited front to back:
 
     alpha = min(op * exp(-sigma), 0.999)   where the pixel is inside the
             3-sigma box, sigma >= 0 and op * exp(-sigma) >= 1/255, else 0
     sigma = 0.5 * (a dx^2 + c dy^2) + b dx dy
     accum += alpha * T * channels;  T *= (1 - alpha)
 
-The backward recomputes alpha and T in forward order and takes suffix sums
-as Total - prefix from the forward outputs (accum, tfin): no per-Gaussian
-residuals are stored and nothing is divided by a small T.
+The backward recomputes alpha and T in forward order and takes suffix
+sums as Total - prefix from the forward outputs (accum, tfin): no
+per-Gaussian residuals are stored and nothing is divided by a small T.
+
+Three compositors share that math and one stop rule:
+  * window (K1, K2/K3): dyn (T, S, Fd, cap) + static (T, 1+Dc, cap) for
+    all S exposure sub-frames of a bucket row, channel-major outputs;
+  * split (K4): one sub-frame of the same layout, (T, Fd, cap); it runs
+    the window kernels at S = 1 (K4 is K1/K2 with one sub-frame);
+  * dense (K5): one payload (T, 7+D, cap) per image-tile row, rows
+    [mx, my, a, b, c, op, r, channels], pixel-major outputs.
 
 Early-stop rule (shared by the CUDA kernels and the plain twins): the
 Gaussians are walked in chunks of CHUNK = 128; before each chunk, the
-(bucket row, sub-frame) pair stops if every one of its P pixels has
-T < EARLY_STOP_T. Forward and backward therefore stop at the same chunk
-for each (row, s). The reference's fused forward K1 and S-split backward
-K3 stop the whole window at once (all sub-frames below the threshold);
-the two rules differ only by contributions of a sub-frame after its own
-T fell below 1e-4, i.e. less than 1e-4 of a channel unit per pixel.
+(tile row, sub-frame) pair stops if every one of its P pixels has
+T < EARLY_STOP_T. Forward and backward therefore stop at the same chunk.
+This is K2's, K4's and K5's rule; the reference's fused forward K1 and
+S-split backward K3 stop the whole window at once, which differs only by
+contributions of a sub-frame after its own T fell below 1e-4 (less than
+1e-4 of a channel unit per pixel).
 
-On CUDA tensors ``composite_tiles_window`` launches the kernels in
-csrc/window_composite.cu (built by ops/cuda_build.py) or raises; on CPU
-tensors it runs the twins ``composite_window_plain`` /
-``composite_window_bwd_plain``. There is no fallback from one to the other.
+On CUDA tensors the compositors launch the kernels in csrc/ (built by
+ops/cuda_build.py) or raise; on CPU tensors they run the twins. There is
+no fallback from one to the other. The dense and split twins are the
+window twin on views of their inputs (the same per-pair math).
 """
 
 from __future__ import annotations
@@ -35,7 +42,15 @@ import ctypes
 
 import torch
 
-from deblur4dgs_tpu_torch.ops.tiling import TILE, num_tiles
+from deblur4dgs_tpu_torch.ops.tiling import (
+    F_CHANNELS,
+    F_OPACITY,
+    F_RADIUS,
+    TILE,
+    _pad_rows,
+    num_tiles,
+    pack_and_gather,
+)
 
 ALPHA_CLAMP = 0.999
 ALPHA_CUTOFF = 1.0 / 255.0
@@ -44,11 +59,13 @@ ALPHA_CUTOFF = 1.0 / 255.0
 EARLY_STOP_T = 1e-4
 CHUNK = 128  # Gaussians per chunk (the stop rule's granularity)
 P = TILE * TILE  # pixels per tile
+MAX_DENSE_CHANNELS = 16  # the dense kernels' register accumulators
 
 # Launch counts of the CUDA kernels, incremented only where a kernel is
 # launched (CPU twins and kernel-vs-twin checks through the twins never
-# count). chip_smoke.py zeroes them before driving the train step.
-LAUNCHES = {"window_fwd": 0, "window_bwd": 0}
+# count). chip_smoke.py zeroes them before driving a path.
+LAUNCHES = {"window_fwd": 0, "window_bwd": 0, "split_fwd": 0,
+            "split_bwd": 0, "dense_fwd": 0, "dense_bwd": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -108,7 +125,7 @@ def _running(ci, nchunks, Tc):
 
 def composite_window_plain(dyn, st, counts, tile_ids, tiles_x, nchan,
                            depth_in_dyn, return_work=False):
-    """Plain twin of the forward kernel.
+    """Plain twin of the window forward kernel.
 
     dyn (T, S, Fd, cap), st (T, 1+Dc, cap), counts/tile_ids (T,) int32 ->
     accum (T, S, nchan, P), tfin (T, S, P). Vectorized over rows and
@@ -116,10 +133,12 @@ def composite_window_plain(dyn, st, counts, tile_ids, tiles_x, nchan,
 
     ``return_work`` adds a dict of what the kernels' loops do on this data
     (for bounds): ``pairs`` (pixel, Gaussian) evaluations up to each
-    (row, s)'s stop chunk and count, and ``live`` pairs that composite.
+    (row, s)'s stop chunk and count, ``live`` pairs that composite, and
+    ``slots`` (T, S), the payload slots each (row, s) walks.
     """
     pairs = live = 0
     T, S, Fd, cap = dyn.shape
+    slots = torch.zeros((T, S), dtype=torch.int64, device=dyn.device)
     n_static = nchan - (1 if depth_in_dyn else 0)
     px, py = _pixel_centres(tile_ids, tiles_x)
     counts = counts.long()
@@ -144,16 +163,17 @@ def composite_window_plain(dyn, st, counts, tile_ids, tiles_x, nchan,
         accum = accum + torch.einsum("tscg,tspg->tscp", ch, w)
         Tc = Tg[..., -1] * one_minus[..., -1]
         if return_work:
+            slots += in_count[:, :, 0].sum(-1)
             pairs += int(in_count.sum()) * P
             live += int((alpha > 0).sum())
     if return_work:
-        return accum, Tc, {"pairs": pairs, "live": live}
+        return accum, Tc, {"pairs": pairs, "live": live, "slots": slots}
     return accum, Tc
 
 
 def composite_window_bwd_plain(dyn, st, counts, tile_ids, accum, tfin, gacc,
                                gt, tiles_x, nchan, depth_in_dyn):
-    """Plain twin of the backward kernel.
+    """Plain twin of the window backward kernel.
 
     Returns gdyn (T, S, Fd, cap) rows [g_mx, g_my, g_a, g_b, g_c, 0
     (, g_depth)] and gst (T, 1+Dc, cap) rows [g_op, g_chans] summed over S.
@@ -214,6 +234,70 @@ def composite_window_bwd_plain(dyn, st, counts, tile_ids, accum, tfin, gacc,
     return gdyn, gst
 
 
+def composite_split_plain(dyn, st, counts, tile_ids, tiles_x, nchan,
+                          depth_in_dyn, return_work=False):
+    """Plain twin of the split forward (K4): the window twin at S = 1.
+    dyn (T, Fd, cap) -> accum (T, nchan, P), tfin (T, P)."""
+    out = composite_window_plain(dyn[:, None], st, counts, tile_ids, tiles_x,
+                                 nchan, depth_in_dyn, return_work)
+    return (out[0][:, 0], out[1][:, 0]) + tuple(out[2:])
+
+
+def composite_split_bwd_plain(dyn, st, counts, tile_ids, accum, tfin, gacc,
+                              gt, tiles_x, nchan, depth_in_dyn):
+    """Plain twin of the split backward: gdyn (T, Fd, cap), gst."""
+    gdyn, gst = composite_window_bwd_plain(
+        dyn[:, None], st, counts, tile_ids, accum[:, None], tfin[:, None],
+        gacc[:, None], gt[:, None], tiles_x, nchan, depth_in_dyn,
+    )
+    return gdyn[:, 0], gst
+
+
+_DENSE_DYN_ROWS = [0, 1, 2, 3, 4, F_RADIUS]  # -> [mx, my, a, b, c, r]
+
+
+def _dense_as_window(tile_data, nchan):
+    """Dense rows as the window twin's inputs at S = 1: dyn (T, 1, 6, cap),
+    st (T, 1+D, cap) = [op, channels], tile ids = row index."""
+    T = tile_data.shape[0]
+    dyn = tile_data[:, _DENSE_DYN_ROWS][:, None]
+    st = tile_data[:, [F_OPACITY, *range(F_CHANNELS, F_CHANNELS + nchan)]]
+    ids = torch.arange(T, dtype=torch.int32, device=tile_data.device)
+    return dyn, st, ids
+
+
+def composite_dense_plain(tile_data, counts, tiles_x, nchan,
+                          return_work=False):
+    """Plain twin of the dense forward (K5, rasterize.py:160).
+
+    tile_data (T, 7+D, cap), counts (T,) int32 -> accum (T, P, D),
+    tfin (T, P, 1) (pixel-major, as K5 writes them)."""
+    dyn, st, ids = _dense_as_window(tile_data, nchan)
+    out = composite_window_plain(dyn, st, counts, ids, tiles_x, nchan, False,
+                                 return_work)
+    return (out[0][:, 0].transpose(1, 2).contiguous(),
+            out[1][:, 0, :, None].contiguous()) + tuple(out[2:])
+
+
+def composite_dense_bwd_plain(tile_data, counts, accum, tfin, gacc, gt,
+                              tiles_x, nchan):
+    """Plain twin of the dense backward (K5, rasterize.py:207-299).
+
+    Returns gdata (T, 7+D, cap) rows [g_mx, g_my, g_a, g_b, g_c, g_op, 0,
+    g_channels]."""
+    dyn, st, ids = _dense_as_window(tile_data, nchan)
+    cmaj = lambda x: x.transpose(1, 2)[:, None]  # (T, P, D) -> (T, 1, D, P)
+    gdyn, gst = composite_window_bwd_plain(
+        dyn, st, counts, ids, cmaj(accum), tfin[:, None, :, 0], cmaj(gacc),
+        gt[:, None, :, 0], tiles_x, nchan, False,
+    )
+    gdata = torch.zeros_like(tile_data)
+    gdata[:, :F_OPACITY] = gdyn[:, 0, :5]
+    gdata[:, F_OPACITY] = gst[:, 0]
+    gdata[:, F_CHANNELS:] = gst[:, 1:]
+    return gdata
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel wrappers (ctypes; see ops/cuda_build.py)
 # ---------------------------------------------------------------------------
@@ -231,8 +315,25 @@ def _check(x, name, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _ptr(x):
-    return ctypes.c_void_p(x.data_ptr())
+def _require_cuda(x):
+    if not x.is_cuda:
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {x.device}")
+
+
+def _launch(dev, name, *args):
+    """Call the C entry ``d4gs_<name>`` on the current stream of ``dev``
+    (tensors passed as pointers); raise if the launch failed."""
+    from deblur4dgs_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load()
+    cargs = [ctypes.c_void_p(a.data_ptr()) if torch.is_tensor(a) else a
+             for a in args]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, f"d4gs_{name}")(*cargs, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{cuda_build.error_string(err)}")
 
 
 def _check_window_inputs(dyn, st, counts, tile_ids, nchan, depth_in_dyn):
@@ -251,96 +352,167 @@ def _check_window_inputs(dyn, st, counts, tile_ids, nchan, depth_in_dyn):
     return T, S, Fd, Fs, cap
 
 
-def window_fwd_cuda(dyn, st, counts, tile_ids, tiles_x, nchan, depth_in_dyn):
-    """Launch the forward kernel (replaces the TPU kernel K1,
-    deblur4dgs_tpu/ops/rasterize.py::_fwd_kernel_window)."""
-    if not dyn.is_cuda:
-        raise ValueError(f"the CUDA kernels take CUDA tensors, got {dyn.device}")
+def _window_fwd(dyn, st, counts, tile_ids, tiles_x, nchan, depth_in_dyn,
+                key):
+    _require_cuda(dyn)
     T, S, Fd, Fs, cap = _check_window_inputs(
         dyn, st, counts, tile_ids, nchan, depth_in_dyn
     )
-    from deblur4dgs_tpu_torch.ops import cuda_build
-
-    lib = cuda_build.load()
-    accum = torch.empty((T, S, nchan, P), dtype=torch.float32,
-                        device=dyn.device)
-    tfin = torch.empty((T, S, P), dtype=torch.float32, device=dyn.device)
-    with torch.cuda.device(dyn.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.d4gs_window_fwd(
-            _ptr(tile_ids), _ptr(counts), _ptr(dyn), _ptr(st), _ptr(accum),
-            _ptr(tfin), T, S, Fd, Fs, cap, nchan, int(bool(depth_in_dyn)),
-            tiles_x, ctypes.c_void_p(stream),
-        )
-    if err != 0:
-        raise RuntimeError(f"window forward kernel launch failed: "
-                           f"{cuda_build.error_string(err)}")
-    LAUNCHES["window_fwd"] += 1
+    accum = dyn.new_empty((T, S, nchan, P))
+    tfin = dyn.new_empty((T, S, P))
+    _launch(dyn.device, "window_fwd", tile_ids, counts, dyn, st, accum, tfin,
+            T, S, Fd, Fs, cap, nchan, int(bool(depth_in_dyn)), tiles_x)
+    LAUNCHES[key] += 1
     return accum, tfin
 
 
-def window_bwd_cuda(dyn, st, counts, tile_ids, accum, tfin, gacc, gt,
-                    tiles_x, nchan, depth_in_dyn):
-    """Launch the backward kernel (replaces the TPU kernels K2,
-    _bwd_kernel_window_sgrid, and K3, _bwd_kernel_window). gst is summed
-    over S with atomicAdd into a zeroed buffer."""
-    if not dyn.is_cuda:
-        raise ValueError(f"the CUDA kernels take CUDA tensors, got {dyn.device}")
+def _window_bwd(dyn, st, counts, tile_ids, accum, tfin, gacc, gt, tiles_x,
+                nchan, depth_in_dyn, key):
+    _require_cuda(dyn)
     T, S, Fd, Fs, cap = _check_window_inputs(
         dyn, st, counts, tile_ids, nchan, depth_in_dyn
     )
-    from deblur4dgs_tpu_torch.ops import cuda_build
-
     dev = dyn.device
     _check(accum, "accum", torch.float32, (T, S, nchan, P), dev)
     _check(tfin, "tfin", torch.float32, (T, S, P), dev)
     _check(gacc, "gacc", torch.float32, (T, S, nchan, P), dev)
     _check(gt, "gt", torch.float32, (T, S, P), dev)
-    lib = cuda_build.load()
     gdyn = torch.empty_like(dyn)
     gst = torch.zeros_like(st)  # atomicAdd target
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.d4gs_window_bwd(
-            _ptr(tile_ids), _ptr(counts), _ptr(dyn), _ptr(st), _ptr(accum),
-            _ptr(tfin), _ptr(gacc), _ptr(gt), _ptr(gdyn), _ptr(gst),
-            T, S, Fd, Fs, cap, nchan, int(bool(depth_in_dyn)), tiles_x,
-            ctypes.c_void_p(stream),
-        )
-    if err != 0:
-        raise RuntimeError(f"window backward kernel launch failed: "
-                           f"{cuda_build.error_string(err)}")
-    LAUNCHES["window_bwd"] += 1
+    _launch(dev, "window_bwd", tile_ids, counts, dyn, st, accum, tfin, gacc,
+            gt, gdyn, gst, T, S, Fd, Fs, cap, nchan,
+            int(bool(depth_in_dyn)), tiles_x)
+    LAUNCHES[key] += 1
     return gdyn, gst
 
 
-class _CompositeWindow(torch.autograd.Function):
-    """Kernel forward/backward on CUDA tensors, plain twins on CPU ones."""
+def window_fwd_cuda(dyn, st, counts, tile_ids, tiles_x, nchan, depth_in_dyn):
+    """Launch the window forward kernel (replaces the TPU kernel K1,
+    deblur4dgs_tpu/ops/rasterize.py::_fwd_kernel_window)."""
+    return _window_fwd(dyn, st, counts, tile_ids, tiles_x, nchan,
+                       depth_in_dyn, "window_fwd")
+
+
+def window_bwd_cuda(dyn, st, counts, tile_ids, accum, tfin, gacc, gt,
+                    tiles_x, nchan, depth_in_dyn):
+    """Launch the window backward kernel (replaces the TPU kernels K2,
+    _bwd_kernel_window_sgrid, and K3, _bwd_kernel_window). gst is summed
+    over S with atomicAdd into a zeroed buffer."""
+    return _window_bwd(dyn, st, counts, tile_ids, accum, tfin, gacc, gt,
+                       tiles_x, nchan, depth_in_dyn, "window_bwd")
+
+
+def split_fwd_cuda(dyn, st, counts, tile_ids, tiles_x, nchan, depth_in_dyn):
+    """The split forward K4 (deblur4dgs_tpu/ops/rasterize.py::
+    _fwd_kernel_split) as the window forward kernel at S = 1.
+
+    K4 is K1 with one sub-frame in the same layout: its (Tp, Fd, cap) dyn
+    rows are a (Tp, 1, Fd, cap) window, and its stop rule per row is the
+    window kernel's per (row, s) at S = 1. Views in and out, no copies."""
+    _require_cuda(dyn)
+    accum, tfin = _window_fwd(dyn[:, None], st, counts, tile_ids, tiles_x,
+                              nchan, depth_in_dyn, "split_fwd")
+    return accum[:, 0], tfin[:, 0]
+
+
+def split_bwd_cuda(dyn, st, counts, tile_ids, accum, tfin, gacc, gt,
+                   tiles_x, nchan, depth_in_dyn):
+    """The split backward K4 (_bwd_kernel_split) as the window backward
+    kernel at S = 1 (see split_fwd_cuda): gdyn (Tp, Fd, cap), gst."""
+    _require_cuda(dyn)
+    gdyn, gst = _window_bwd(dyn[:, None], st, counts, tile_ids,
+                            accum[:, None], tfin[:, None], gacc[:, None],
+                            gt[:, None], tiles_x, nchan, depth_in_dyn,
+                            "split_bwd")
+    return gdyn[:, 0], gst
+
+
+def _check_dense_inputs(tile_data, counts, nchan):
+    T, F, cap = tile_data.shape
+    if F != F_CHANNELS + nchan:
+        raise ValueError(f"tile_data has {F} rows, expected "
+                         f"{F_CHANNELS + nchan}")
+    if not 1 <= nchan <= MAX_DENSE_CHANNELS:
+        raise ValueError(f"nchan {nchan} outside [1, {MAX_DENSE_CHANNELS}]")
+    if cap % CHUNK:
+        raise ValueError(f"capacity {cap} is not a multiple of {CHUNK}")
+    _check(tile_data, "tile_data", torch.float32, (T, F, cap),
+           tile_data.device)
+    _check(counts, "counts", torch.int32, (T,), tile_data.device)
+    return T, F, cap
+
+
+def dense_fwd_cuda(tile_data, counts, tiles_x, nchan):
+    """Launch the dense forward kernel (replaces the TPU kernel K5,
+    deblur4dgs_tpu/ops/rasterize.py::_fwd_kernel). accum (T, P, D),
+    tfin (T, P, 1)."""
+    _require_cuda(tile_data)
+    T, F, cap = _check_dense_inputs(tile_data, counts, nchan)
+    accum = tile_data.new_empty((T, P, nchan))
+    tfin = tile_data.new_empty((T, P, 1))
+    _launch(tile_data.device, "dense_fwd", counts, tile_data, accum, tfin,
+            T, F, cap, nchan, tiles_x)
+    LAUNCHES["dense_fwd"] += 1
+    return accum, tfin
+
+
+def dense_bwd_cuda(tile_data, counts, accum, tfin, gacc, gt, tiles_x, nchan):
+    """Launch the dense backward kernel (replaces K5's _bwd_kernel /
+    _bwd_one_tile). gdata (T, 7+D, cap), written whole by the kernel."""
+    _require_cuda(tile_data)
+    T, F, cap = _check_dense_inputs(tile_data, counts, nchan)
+    dev = tile_data.device
+    _check(accum, "accum", torch.float32, (T, P, nchan), dev)
+    _check(tfin, "tfin", torch.float32, (T, P, 1), dev)
+    _check(gacc, "gacc", torch.float32, (T, P, nchan), dev)
+    _check(gt, "gt", torch.float32, (T, P, 1), dev)
+    gdata = torch.empty_like(tile_data)
+    _launch(dev, "dense_bwd", counts, tile_data, accum, tfin, gacc, gt,
+            gdata, T, F, cap, nchan, tiles_x)
+    LAUNCHES["dense_bwd"] += 1
+    return gdata
+
+
+# name: (forward on CUDA, forward twin, backward on CUDA, backward twin)
+_COMPOSITORS = {
+    "window": (window_fwd_cuda, composite_window_plain, window_bwd_cuda,
+               composite_window_bwd_plain),
+    "split": (split_fwd_cuda, composite_split_plain, split_bwd_cuda,
+              composite_split_bwd_plain),
+    "dense": (dense_fwd_cuda, composite_dense_plain, dense_bwd_cuda,
+              composite_dense_bwd_plain),
+}
+
+
+class _Composite(torch.autograd.Function):
+    """Kernel forward/backward on CUDA tensors, plain twins on CPU ones.
+
+    ``args`` are the compositor's arguments: its tensors first (the
+    ``n_diff`` differentiable payloads, then counts / tile ids), then its
+    static ints and flags."""
 
     @staticmethod
-    def forward(ctx, dyn, st, counts, tile_ids, tiles_x, nchan, depth_in_dyn):
-        if dyn.is_cuda:
-            accum, tfin = window_fwd_cuda(
-                dyn, st, counts, tile_ids, tiles_x, nchan, depth_in_dyn
-            )
-        else:
-            accum, tfin = composite_window_plain(
-                dyn, st, counts, tile_ids, tiles_x, nchan, depth_in_dyn
-            )
-        ctx.save_for_backward(dyn, st, counts, tile_ids, accum, tfin)
-        ctx.cfg = (tiles_x, nchan, depth_in_dyn)
+    def forward(ctx, kind, n_diff, *args):
+        fwd_cuda, fwd_plain, _, _ = _COMPOSITORS[kind]
+        accum, tfin = (fwd_cuda if args[0].is_cuda else fwd_plain)(*args)
+        n_t = sum(torch.is_tensor(a) for a in args)
+        ctx.save_for_backward(*args[:n_t], accum, tfin)
+        ctx.kind, ctx.n_diff, ctx.cfg = kind, n_diff, args[n_t:]
         return accum, tfin
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, gacc, gt):
-        dyn, st, counts, tile_ids, accum, tfin = ctx.saved_tensors
+        *ins, accum, tfin = ctx.saved_tensors
+        _, _, bwd_cuda, bwd_plain = _COMPOSITORS[ctx.kind]
         gacc = torch.zeros_like(accum) if gacc is None else gacc.contiguous()
         gt = torch.zeros_like(tfin) if gt is None else gt.contiguous()
-        fn = window_bwd_cuda if dyn.is_cuda else composite_window_bwd_plain
-        gdyn, gst = fn(dyn, st, counts, tile_ids, accum, tfin, gacc, gt,
-                       *ctx.cfg)
-        return gdyn, gst, None, None, None, None, None
+        fn = bwd_cuda if ins[0].is_cuda else bwd_plain
+        grads = fn(*ins, accum, tfin, gacc, gt, *ctx.cfg)
+        if torch.is_tensor(grads):
+            grads = (grads,)
+        n_rest = len(ins) + len(ctx.cfg) - ctx.n_diff
+        return (None, None, *grads, *([None] * n_rest))
 
 
 def composite_tiles_window(dyn, st, counts, tile_ids, tiles_x, nchan,
@@ -352,14 +524,41 @@ def composite_tiles_window(dyn, st, counts, tile_ids, tiles_x, nchan,
     (T, S, nchan, P), tfin (T, S, P). The static-payload gradient is summed
     over sub-frames.
     """
-    return _CompositeWindow.apply(
-        dyn, st, counts, tile_ids, tiles_x, nchan, bool(depth_in_dyn)
+    return _Composite.apply("window", 2, dyn, st, counts, tile_ids, tiles_x,
+                            nchan, bool(depth_in_dyn))
+
+
+def composite_tiles_split(dyn, st, counts, tile_ids, tiles_x, nchan,
+                          depth_in_dyn):
+    """Split-payload compositor of one sub-frame (K4) with a custom
+    backward: dyn (T, Fd, cap), st (T, 1+Dc, cap) -> channel-major accum
+    (T, nchan, P), tfin (T, P)."""
+    return _Composite.apply("split", 2, dyn, st, counts, tile_ids, tiles_x,
+                            nchan, bool(depth_in_dyn))
+
+
+def composite_tiles(tile_data, counts, tiles_x, nchan):
+    """Dense compositor (K5) with a custom backward: (T, 7+D, CAP), (T,)
+    -> accum (T, P, D), tfin (T, P, 1). Row t is image tile t."""
+    return _Composite.apply("dense", 1, tile_data, counts, tiles_x, nchan)
+
+
+# ---------------------------------------------------------------------------
+# Public rasterization API (one view)
+# ---------------------------------------------------------------------------
+
+
+def untile(accum, tfin, img_wh, tiles_xy, nchan):
+    """Pixel-major untile: (T, P, D), (T, P, 1) -> (H, W, D), (H, W)."""
+    W, H = img_wh
+    tiles_x, tiles_y = tiles_xy
+    img = accum.reshape(tiles_y, tiles_x, TILE, TILE, nchan)
+    img = img.permute(0, 2, 1, 3, 4).reshape(
+        tiles_y * TILE, tiles_x * TILE, nchan
     )
-
-
-# ---------------------------------------------------------------------------
-# Bucketed window compositing (host side)
-# ---------------------------------------------------------------------------
+    tf = tfin.reshape(tiles_y, tiles_x, TILE, TILE)
+    tf = tf.permute(0, 2, 1, 3).reshape(tiles_y * TILE, tiles_x * TILE)
+    return img[:H, :W], tf[:H, :W]
 
 
 def untile_cmajor(accum, tfin, img_wh, tiles_xy, nchan):
@@ -373,6 +572,59 @@ def untile_cmajor(accum, tfin, img_wh, tiles_xy, nchan):
     tf = tfin.reshape(tiles_y, tiles_x, TILE, TILE)
     tf = tf.permute(0, 2, 1, 3).reshape(tiles_y * TILE, tiles_x * TILE)
     return img[:H, :W], tf[:H, :W]
+
+
+def rasterize(
+    proj,  # ops.projection.Projected of one view
+    opacities: torch.Tensor,  # (G,)
+    channels: torch.Tensor,  # (G, D)
+    background: torch.Tensor,  # (D,)
+    img_wh: tuple[int, int],
+    cap: int = 512,
+):
+    """Full tile rasterization of one view: bin -> composite (K5) -> untile.
+
+    Returns (img (H, W, D) with the background blended by the final
+    transmittance, alpha = 1 - T_fin (H, W), binning)."""
+    nchan = channels.shape[-1]
+    binning = pack_and_gather(proj, opacities, channels, img_wh, cap=cap)
+    tiles_x, tiles_y = binning.tiles_xy
+    accum, tfin = composite_tiles(binning.tile_data, binning.counts, tiles_x,
+                                  nchan)
+    T = tiles_x * tiles_y  # drop TILE_BLOCK padding rows
+    img, tf = untile(accum[:T], tfin[:T], img_wh, binning.tiles_xy, nchan)
+    img = img + tf[..., None] * background[None, None, :]
+    return img, 1.0 - tf, binning
+
+
+def rasterize_split(
+    st_data: torch.Tensor,  # (Tp, 1+Dc, CAP) window-shared static payload
+    dyn_data: torch.Tensor,  # (Tp, Fd, CAP) one sub-frame of pack_dyn_all
+    counts: torch.Tensor,  # (T,) int32 of the shared binning
+    background: torch.Tensor,  # (nchan,)
+    img_wh: tuple[int, int],
+    include_depth: bool,
+):
+    """Exposure-shared rasterization of one sub-frame (split payload, K4).
+
+    Returns (img (H, W, nchan), alpha (H, W))."""
+    tiles_x, tiles_y = num_tiles(img_wh)
+    T = tiles_x * tiles_y
+    nchan = st_data.shape[1] - 1 + (1 if include_depth else 0)
+    counts = _pad_rows(counts, 0)
+    tile_ids = torch.arange(counts.shape[0], dtype=torch.int32,
+                            device=counts.device)
+    accum, tfin = composite_tiles_split(dyn_data, st_data, counts, tile_ids,
+                                        tiles_x, nchan, include_depth)
+    img, tf = untile_cmajor(accum[:T], tfin[:T], img_wh, (tiles_x, tiles_y),
+                            nchan)
+    img = img + tf[..., None] * background[None, None, :]
+    return img, 1.0 - tf
+
+
+# ---------------------------------------------------------------------------
+# Bucketed window compositing (host side)
+# ---------------------------------------------------------------------------
 
 
 def composite_window_buckets(

@@ -1,8 +1,9 @@
-"""Depth sorting + exposure-shared tile binning + count-sorted buckets.
+"""Depth sorting + tile binning + count-sorted buckets + payload packing.
 
-PyTorch port of the window path of deblur4dgs_tpu/ops/tiling.py. Every
-integer output (sort order, sorted runs, bucket tile ids, counts, gather
-indices) equals the reference's exactly:
+PyTorch port of deblur4dgs_tpu/ops/tiling.py (all but the top-k binning
+``bin_gaussians`` and the unused ``bucket_tiles`` / ``pack_dyn_fused``).
+Every integer output (sort order, sorted runs, dense tile lists, bucket tile
+ids, counts, gather indices) equals the reference's exactly:
   * both depth-order sorts are stable (``torch.argsort(stable=True)``;
     ``jnp.argsort`` is stable by default), so ties in the depth key and in
     the per-tile occupancy (which decides bucket membership) break by index;
@@ -10,10 +11,13 @@ indices) equals the reference's exactly:
     which orders pairs exactly like the reference's fused int32 key or its
     two-key fallback.
 
-Layout (the window compositor's input): per bucket, dyn (Tb, S, Fd, cap)
-rows [mx, my, conic_a, conic_b, conic_c, radius (, depth)] and static
-(Tb, 1+Dc, cap) rows [opacity, channels]. Slots past a tile's count hold
-the zero sentinel row (index G of the packed tables).
+Layouts. Dense (the compositor K5's input, ``pack_with_binning``): per tile
+row (7+D, cap) rows [mx, my, conic_a, conic_b, conic_c, opacity, radius,
+channels]. Split (the window compositor and K4): dyn rows [mx, my, conic_a,
+conic_b, conic_c, radius (, depth)] per sub-frame and static rows [opacity,
+channels] shared by the window. Slots past a tile's count hold the zero
+sentinel row (index G of the packed tables). Every row gather is
+``F.embedding`` with padding_idx=G (see ``pack_window_fused``).
 """
 
 from __future__ import annotations
@@ -35,9 +39,37 @@ def pad_tiles(n: int) -> int:
     return -(-n // TILE_BLOCK) * TILE_BLOCK
 
 
+# Dense payload rows (the F axis of TileBinning.tile_data). The radius rides
+# along so the compositor's per-pixel box cutoff makes tile membership exact
+# (the zero sentinel row has radius 0 and contributes nothing).
+(
+    F_MEAN_X,
+    F_MEAN_Y,
+    F_CONIC_A,
+    F_CONIC_B,
+    F_CONIC_C,
+    F_OPACITY,
+    F_RADIUS,
+) = range(7)
+F_CHANNELS = 7
+
+
+class TileBinning(NamedTuple):
+    tile_data: torch.Tensor  # (Tp, F, CAP) packed per-tile Gaussian params
+    counts: torch.Tensor  # (Tp,) int32 Gaussians binned (<= CAP)
+    gather_idx: torch.Tensor  # (Tp, CAP) int32 into the depth-sorted arrays
+    order: torch.Tensor  # (G,) sort order (sorted -> original index)
+    raw_counts: torch.Tensor  # (Tp,) int32 pre-cap intersection counts
+    tiles_xy: tuple[int, int]  # (tiles_x, tiles_y)
+
+
 def num_tiles(img_wh: tuple[int, int]) -> tuple[int, int]:
     W, H = img_wh
     return (-(-W // TILE), -(-H // TILE))
+
+
+def _tile_of(x, n):
+    return torch.clamp(torch.floor(x / TILE), 0, n - 1).to(torch.int64)
 
 
 class TileBuckets(NamedTuple):
@@ -132,6 +164,102 @@ def _pairs_to_runs(tx0, tx1, ty0, ty1, cx, cy, valid, G, T, tiles_x,
             counts.to(i32), raw.to(i32))
 
 
+def _pairs_to_lists(tx0, tx1, ty0, ty1, cx, cy, valid, G, T, tiles_x,
+                    tiles_y, MT, cap):
+    """Pair-expansion binning up to the dense (T, cap) tile lists.
+
+    Scatters each sorted pair to (its tile, its position in the tile's
+    run). Pairs past a tile's capacity and pairs of no tile all land on
+    the discarded row T (duplicates there are harmless: it is dropped).
+    Returns (gather_idx (T, cap) int32, counts (T,), raw (T,)).
+    """
+    rank_sorted, tile_sorted, _, counts, raw = _pairs_to_runs(
+        tx0, tx1, ty0, ty1, cx, cy, valid, G, T, tiles_x, tiles_y, MT, cap
+    )
+    E = tile_sorted.shape[0]
+    dev = tile_sorted.device
+    idx = torch.arange(E, dtype=torch.int64, device=dev)
+    is_start = torch.ones((E,), dtype=torch.bool, device=dev)
+    is_start[1:] = tile_sorted[1:] != tile_sorted[:-1]
+    run_start = torch.cummax(torch.where(is_start, idx, 0), dim=0).values
+    pos = idx - run_start
+    ok = (tile_sorted < T) & (pos < cap)
+    slot = torch.where(ok, tile_sorted.long() * cap + pos, T * cap)
+    gather_idx = torch.full(((T + 1) * cap,), G, dtype=torch.int32,
+                            device=dev)
+    gather_idx[slot] = rank_sorted
+    return gather_idx.view(T + 1, cap)[:T], counts, raw
+
+
+def bin_gaussians_pairs(
+    proj: Projected,  # one view: (G, ...) arrays
+    img_wh: tuple[int, int],
+    cap: int = 512,
+    max_tiles_per_gauss: int = 32,
+):
+    """Pair-expansion binning of one view: each depth-sorted Gaussian emits
+    up to MT (tile, rank) pairs over its bounding square's tile span; one
+    sort groups them by tile in depth order.
+
+    Returns (gather_idx (T, cap) into depth-sorted arrays, counts (T,),
+    raw_counts (T,), order (G,))."""
+    G = proj.depths.shape[0]
+    tiles_x, tiles_y = num_tiles(img_wh)
+    key = torch.where(proj.valid, proj.depths,
+                      torch.full_like(proj.depths, float("inf")))
+    order = torch.argsort(key, stable=True)
+    mx, my = proj.means2d[order, 0], proj.means2d[order, 1]
+    r = proj.radii[order]
+    tx0, tx1 = _tile_of(mx - r, tiles_x), _tile_of(mx + r, tiles_x)
+    ty0, ty1 = _tile_of(my - r, tiles_y), _tile_of(my + r, tiles_y)
+    gather_idx, counts, raw = _pairs_to_lists(
+        tx0, tx1, ty0, ty1, mx, my, proj.valid[order], G, tiles_x * tiles_y,
+        tiles_x, tiles_y, max_tiles_per_gauss, cap,
+    )
+    return gather_idx, counts, raw, order
+
+
+def _union_spans(projs: Projected, img_wh):
+    """Per-Gaussian union of the S sub-frame bounding boxes, depth-sorted
+    by the front-most depth across the window: the arguments of
+    _pairs_to_runs / _pairs_to_lists, and the order."""
+    S, G = projs.depths.shape
+    tiles_x, tiles_y = num_tiles(img_wh)
+    inf = torch.tensor(float("inf"), device=projs.depths.device)
+
+    v = projs.valid
+    mx, my, r = projs.means2d[..., 0], projs.means2d[..., 1], projs.radii
+    valid_any = v.any(dim=0)
+    mx0 = torch.where(v, mx - r, inf).amin(0)
+    mx1 = torch.where(v, mx + r, -inf).amax(0)
+    my0 = torch.where(v, my - r, inf).amin(0)
+    my1 = torch.where(v, my + r, -inf).amax(0)
+    depth_key = torch.where(v, projs.depths, inf).amin(0)
+
+    key = torch.where(valid_any, depth_key, inf)
+    order = torch.argsort(key, stable=True)
+    x0, x1, y0, y1 = mx0[order], mx1[order], my0[order], my1[order]
+    args = (
+        _tile_of(x0, tiles_x), _tile_of(x1, tiles_x),
+        _tile_of(y0, tiles_y), _tile_of(y1, tiles_y),
+        0.5 * (x0 + x1), 0.5 * (y0 + y1), valid_any[order],
+        G, tiles_x * tiles_y, tiles_x, tiles_y,
+    )
+    return args, order
+
+
+def bin_gaussians_union(
+    projs: Projected,  # arrays with a leading sub-frame axis (S, G, ...)
+    img_wh: tuple[int, int],
+    cap: int = 512,
+    max_tiles_per_gauss: int = 32,
+):
+    """Shared binning for an exposure window as dense (T, cap) lists (the
+    small-image split path). Returns (gather_idx, counts, raw, order)."""
+    args, order = _union_spans(projs, img_wh)
+    return _pairs_to_lists(*args, max_tiles_per_gauss, cap) + (order,)
+
+
 def bin_gaussians_union_runs(
     projs: Projected,  # arrays with a leading sub-frame axis (S, G, ...)
     img_wh: tuple[int, int],
@@ -148,35 +276,9 @@ def bin_gaussians_union_runs(
     Returns (rank_sorted, starts, counts, raw, order), int32 except order
     (int64 permutation, sorted -> original index).
     """
-    S, G = projs.depths.shape
-    tiles_x, tiles_y = num_tiles(img_wh)
-    T = tiles_x * tiles_y
-    inf = torch.tensor(float("inf"), device=projs.depths.device)
-
-    v = projs.valid
-    mx, my, r = projs.means2d[..., 0], projs.means2d[..., 1], projs.radii
-    valid_any = v.any(dim=0)
-    mx0 = torch.where(v, mx - r, inf).amin(0)
-    mx1 = torch.where(v, mx + r, -inf).amax(0)
-    my0 = torch.where(v, my - r, inf).amin(0)
-    my1 = torch.where(v, my + r, -inf).amax(0)
-    depth_key = torch.where(v, projs.depths, inf).amin(0)
-
-    key = torch.where(valid_any, depth_key, inf)
-    order = torch.argsort(key, stable=True)
-    x0, x1, y0, y1 = mx0[order], mx1[order], my0[order], my1[order]
-    valid = valid_any[order]
-
-    def tile_of(x, n):
-        return torch.clamp(torch.floor(x / TILE), 0, n - 1).to(torch.int64)
-
-    tx0, tx1 = tile_of(x0, tiles_x), tile_of(x1, tiles_x)
-    ty0, ty1 = tile_of(y0, tiles_y), tile_of(y1, tiles_y)
-    cx = 0.5 * (x0 + x1)
-    cy = 0.5 * (y0 + y1)
+    args, order = _union_spans(projs, img_wh)
     rank_sorted, _, starts, counts, raw = _pairs_to_runs(
-        tx0, tx1, ty0, ty1, cx, cy, valid, G, T, tiles_x, tiles_y,
-        max_tiles_per_gauss, cap,
+        *args, max_tiles_per_gauss, cap
     )
     return rank_sorted, starts, counts, raw, order
 
@@ -233,8 +335,8 @@ def packed_static_table(
     order: torch.Tensor,
 ) -> torch.Tensor:
     """(G+1, 1+Dc) depth-sorted static rows + zero sentinel row."""
-    packed = torch.cat([opacities[:, None], const_channels], dim=-1)[order]
-    return torch.cat([packed, packed.new_zeros((1, packed.shape[-1]))], dim=0)
+    return _with_sentinel(
+        torch.cat([opacities[:, None], const_channels], dim=-1)[order])
 
 
 def packed_dyn_table(
@@ -249,8 +351,109 @@ def packed_dyn_table(
         rows.append(projs.depths[..., None])
     packed = torch.cat(rows, dim=-1)  # (S, G, Fd)
     Fd = packed.shape[-1]
-    packed = packed.transpose(0, 1).reshape(G, S * Fd)[order]
-    return torch.cat([packed, packed.new_zeros((1, S * Fd))], dim=0)
+    return _with_sentinel(packed.transpose(0, 1).reshape(G, S * Fd)[order])
+
+
+def _gather_rows(gather_idx: torch.Tensor, table: torch.Tensor):
+    """table[gather_idx] for a table whose last row G is the zero sentinel.
+
+    F.embedding with padding_idx=G: the same values, but the backward
+    skips the sentinel (a constant zero row) and reduces duplicate indices
+    by segments. Most slots are sentinels; advanced indexing's backward
+    serializes them (331.917 ms of a 475.536 ms bench step on an H100 80GB
+    HBM3 at 700 W, chip_smoke.py; PERF.md)."""
+    return F.embedding(gather_idx.long(), table,
+                       padding_idx=table.shape[0] - 1)
+
+
+def _with_sentinel(packed: torch.Tensor) -> torch.Tensor:
+    return torch.cat([packed, packed.new_zeros((1, packed.shape[-1]))], 0)
+
+
+def _pad_rows(x, fill):
+    """Pad dim 0 to a TILE_BLOCK multiple with ``fill``."""
+    pad = pad_tiles(x.shape[0]) - x.shape[0]
+    if not pad:
+        return x
+    return torch.cat([x, x.new_full((pad,) + tuple(x.shape[1:]), fill)])
+
+
+def _pad_lists(gather_idx, counts, raw, G):
+    """Pad tile rows to a TILE_BLOCK multiple (sentinel entries)."""
+    return _pad_rows(gather_idx, G), _pad_rows(counts, 0), _pad_rows(raw, 0)
+
+
+def pack_with_binning(
+    proj: Projected,
+    opacities: torch.Tensor,  # (G,)
+    channels: torch.Tensor,  # (G, D)
+    gather_idx: torch.Tensor,  # (T or Tp, CAP) into `order`-sorted arrays
+    counts: torch.Tensor,
+    raw_counts: torch.Tensor,
+    order: torch.Tensor,
+    tiles_xy: tuple[int, int],
+) -> TileBinning:
+    """Gather one view's dense payload (Tp, 7+D, CAP) through tile lists."""
+    G = proj.depths.shape[0]
+    gather_idx, counts, raw_counts = _pad_lists(
+        gather_idx, counts, raw_counts, G
+    )
+    packed = torch.cat(
+        [proj.means2d, proj.conics, opacities[:, None], proj.radii[:, None],
+         channels], dim=-1,
+    )[order]
+    tile_data = _gather_rows(gather_idx, _with_sentinel(packed))
+    return TileBinning(tile_data.transpose(-1, -2).contiguous(), counts,
+                       gather_idx, order, raw_counts, tiles_xy)
+
+
+def pack_and_gather(
+    proj: Projected,
+    opacities: torch.Tensor,  # (G,)
+    channels: torch.Tensor,  # (G, D)
+    img_wh: tuple[int, int],
+    cap: int = 512,
+) -> TileBinning:
+    """Full binning of one view (default MT = 32, as the reference calls
+    bin_gaussians_pairs) and the dense payload gather."""
+    gather_idx, counts, raw_counts, order = bin_gaussians_pairs(
+        proj, img_wh, cap
+    )
+    return pack_with_binning(
+        proj, opacities, channels, gather_idx, counts, raw_counts, order,
+        num_tiles(img_wh),
+    )
+
+
+def pack_static(
+    opacities: torch.Tensor,  # (G,)
+    const_channels: torch.Tensor,  # (G, Dc) sub-frame-independent payload
+    gather_idx: torch.Tensor,
+    order: torch.Tensor,
+) -> torch.Tensor:
+    """(Tp, 1 + Dc, CAP) static rows, gathered once per exposure window."""
+    G = opacities.shape[0]
+    out = _gather_rows(_pad_rows(gather_idx, G),
+                       packed_static_table(opacities, const_channels, order))
+    return out.transpose(-1, -2).contiguous()
+
+
+def pack_dyn_all(
+    projs: Projected,  # arrays with leading sub-frame axis (S, G, ...)
+    gather_idx: torch.Tensor,
+    order: torch.Tensor,
+    include_depth: bool,
+) -> torch.Tensor:
+    """(S, Tp, 6(+1), CAP): every sub-frame's screen rows in ONE gather
+    (the exposure-shared lists are the same for all S); each [s] slice is
+    contiguous, as the split compositor takes it."""
+    S, G = projs.depths.shape
+    gather_idx = _pad_rows(gather_idx, G)
+    Tp, cap = gather_idx.shape
+    packed = packed_dyn_table(projs, order, include_depth)
+    out = _gather_rows(gather_idx, packed)  # (Tp, CAP, S*Fd)
+    out = out.reshape(Tp, cap, S, -1).permute(2, 0, 3, 1)
+    return out.contiguous()
 
 
 def pack_window_fused(
@@ -260,19 +463,10 @@ def pack_window_fused(
     Fd: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """ONE row gather per bucket -> (dyn (Tb, S, Fd, cap), st (Tb, Fs, cap)),
-    both contiguous (the compositor kernels take dense layouts).
-
-    The gather is F.embedding with the sentinel row G as padding_idx: the
-    same values as ``table[gather_idx]``, but the backward skips the
-    sentinel (a constant zero row) and reduces duplicate indices by
-    segments. Most slots are sentinels; advanced indexing's backward
-    serializes them (331.917 ms of a 475.536 ms bench step on an H100 —
-    PERF.md, PR 1).
-    """
+    both contiguous (the compositor kernels take dense layouts)."""
     Tp, cap = gather_idx.shape
     assert Tp % TILE_BLOCK == 0, "bucket rows are padded to TILE_BLOCK"
-    G = table.shape[0] - 1
-    out = F.embedding(gather_idx.long(), table, padding_idx=G)
+    out = _gather_rows(gather_idx, table)
     dyn = out[..., : S * Fd].reshape(Tp, cap, S, Fd).permute(0, 2, 3, 1)
     st = out[..., S * Fd :].transpose(-1, -2)
     return dyn.contiguous(), st.contiguous()

@@ -1,7 +1,8 @@
 """Loss library: masked/quantile-trimmed photometric losses, SSIM, motion regs.
 
-PyTorch port of the parts of deblur4dgs_tpu/train/losses.py the dynamic
-train step uses. Trimming is a masked weighting with a masked quantile
+PyTorch port of the parts of deblur4dgs_tpu/train/losses.py the train
+step's static, dynamic and static-reg branches use (not yet:
+masked_huber_loss, tv_loss). Trimming is a masked weighting with a masked quantile
 (sort + interpolated gather), so every loss is fixed-shape. SSIM follows
 pytorch_msssim defaults (11x11 gaussian window, sigma 1.5, K1=0.01,
 K2=0.03) through banded blur matrices in full float32.
@@ -59,6 +60,24 @@ def masked_mse_loss(pred, gt, mask=None, normalize=True, quantile=1.0):
     per = torch.mean((pred - gt) ** 2, dim=-1)
     m = None if mask is None else mask.reshape(per.shape)
     return _masked_reduce(per, m, normalize, quantile)
+
+
+def compute_gradient_loss(pred, gt, mask, quantile=0.98):
+    """Edge-aware depth gradient loss: masked, quantile-trimmed L1 between
+    the finite differences of pred and gt along x and y.
+
+    pred/gt: (H, W) or (H, W, D); mask: (H, W)."""
+    if pred.dim() == 2:
+        pred = pred[..., None]
+        gt = gt[..., None]
+    mask = mask.to(pred.dtype)
+    mask_x = mask[:, 1:] * mask[:, :-1]
+    mask_y = mask[1:, :] * mask[:-1, :]
+    lx = masked_l1_loss(pred[:, 1:] - pred[:, :-1], gt[:, 1:] - gt[:, :-1],
+                        mask=mask_x, quantile=quantile)
+    ly = masked_l1_loss(pred[1:, :] - pred[:-1, :], gt[1:, :] - gt[:-1, :],
+                        mask=mask_y, quantile=quantile)
+    return lx + ly
 
 
 # ---------------------------------------------------------------------------

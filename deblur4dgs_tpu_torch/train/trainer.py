@@ -1,10 +1,12 @@
-"""Trainer: the dynamic loss branch + one train step.
+"""Trainer: the three loss branches + one train step.
 
-PyTorch port of deblur4dgs_tpu/train/trainer.py for the dynamic branch
-(``has_dynamic=True``, no static or static-reg branch, no flow net, no
-multires guide). The step renders the frame's full exposure window,
-computes every dynamic loss, backpropagates once, applies the grouped Adam
-update in place and accumulates density-control statistics.
+PyTorch port of deblur4dgs_tpu/train/trainer.py: the static branch
+(bg-only blurry windows), the dynamic branch (with the multires guide) and
+the static-reg branch (bg-only sharp 'mid' renders). The step runs the
+branches it was built with, backpropagates their summed loss once, applies
+the grouped Adam update in place and accumulates density-control
+statistics. Not ported (raise NotImplementedError): the exposure-
+consistency term behind ``flow_fn`` (PWC-Net) and multi-device training.
 
 Density statistics use the tap trick: a zeros leaf (``requires_grad``) is
 added to every sub-frame's projected means2d; its ``.grad`` is
@@ -125,29 +127,147 @@ def rgb_l1_ssim(pred, gt, mask=None):
     return 0.8 * l1 + 0.2 * (1.0 - ssim_val)
 
 
+def _valid_blend(x, valid_masks):
+    """Pixels outside the valid mask become the white background."""
+    v = valid_masks[..., None]
+    return x * v + (1.0 - v)
+
+
+def _render_kw(rcfg: RenderConfig):
+    return dict(num_exposure=rcfg.num_exposure, cap=rcfg.tile_cap,
+                use_pallas=rcfg.use_pallas, bucketed=rcfg.bucketed,
+                camera_mode=rcfg.camera_mode,
+                max_tiles_per_gauss=rcfg.max_tiles_per_gauss)
+
+
+def _tap(taps, b):
+    return None if taps is None else taps[b]
+
+
+def compute_static_losses(
+    scene: SceneModel,
+    batch: FrameBatch,
+    taps: torch.Tensor | None,  # (B, S, N_bg, 2)
+    lcfg: LossesConfig,
+    rcfg: RenderConfig,
+    stage: str,
+):
+    """Static branch: bg-only blurry renders of B frames (RGB outside the
+    dilated fg mask, bounded disparities, their gradients, scale variance
+    and, for B == 3, exposure-pose continuity, which the reference
+    applies). Returns (loss, aux dict with per-view radii)."""
+    B, H, W = batch.imgs.shape[:3]
+    outs = [
+        render(
+            scene, batch.ts[b].to(torch.float32), batch.w2cs[b], batch.Ks[b],
+            (W, H), mode="blury", stage=stage, bg_only=True,
+            return_mask=True, return_depth=True, bg_color=1.0,
+            means2d_tap=_tap(taps, b), return_exposure_stack=False,
+            **_render_kw(rcfg),
+        )
+        for b in range(B)
+    ]
+    stack = lambda k: torch.stack([o[k] for o in outs])
+    masks = batch.masks * batch.valid_masks
+    imgs = _valid_blend(batch.imgs, batch.valid_masks)
+    rendered = _valid_blend(stack("img"), batch.valid_masks)
+
+    inv = 1.0 - torch.stack([dilate_mask(m) for m in masks])[..., None]
+    rgb_loss = rgb_l1_ssim(rendered, imgs, inv)
+    loss = rgb_loss * lcfg.w_rgb
+
+    # depth bounded below: uncovered pixels have expected depth ~0
+    pred_disp = 1.0 / torch.clamp(stack("depth"), min=1e-2)
+    tgt_disp = 1.0 / torch.clamp(batch.depths[..., None], min=1e-2)
+    depth_l1 = L.masked_l1_loss(pred_disp, tgt_disp, mask=inv[..., 0],
+                                quantile=0.98)
+    loss = loss + lcfg.w_depth_reg * depth_l1
+    grad_l = torch.stack([
+        L.compute_gradient_loss(pred_disp[b, ..., 0], tgt_disp[b, ..., 0],
+                                inv[b, ..., 0] > 0.5, quantile=0.95)
+        for b in range(B)
+    ]).mean()
+    loss = loss + lcfg.w_depth_grad * grad_l
+    loss = loss + lcfg.w_scale_var * L.scale_variance_loss(
+        scene.bg.scales, scene.bg.get_alive()
+    )
+
+    # Exposure-pose continuity across 3 consecutive frames (the reference
+    # computes it and drops it by accident; the author's intent is kept).
+    poses = stack("poses")  # (B, S, 3, 4)
+    if B == 3:
+        cont = torch.mean(torch.abs(poses[0, -1] - poses[1, 0])) + \
+            torch.mean(torch.abs(poses[2, 0] - poses[1, -1]))
+    else:
+        cont = torch.zeros((), device=poses.device)
+    loss = loss + cont
+
+    aux = {
+        "radii": stack("radii"),  # (B, S, N_bg)
+        "rgb_loss": rgb_loss,
+        "depth_l1": depth_l1,
+        "depth_grad": grad_l,
+        "pose_cont": cont,
+        "tile_overflow": torch.mean(stack("tile_overflow")),
+    }
+    return loss, aux
+
+
+def compute_static_reg_losses(
+    scene: SceneModel,
+    batch: FrameBatch,  # stage-1 deblurred bg renders as imgs
+    taps: torch.Tensor | None,  # (B, 1, N_bg, 2)
+    lcfg: LossesConfig,
+    rcfg: RenderConfig,
+    stage: str,
+):
+    """Static-reg branch: bg-only sharp 'mid' renders (the dense
+    compositor) pulled toward the stage-1 outputs outside the dilated fg
+    mask, plus scale variance."""
+    B, H, W = batch.imgs.shape[:3]
+    outs = [
+        render(
+            scene, batch.ts[b].to(torch.float32), batch.w2cs[b], batch.Ks[b],
+            (W, H), mode="mid", stage=stage, bg_only=True, return_mask=True,
+            return_depth=False, bg_color=1.0, means2d_tap=_tap(taps, b),
+            **_render_kw(rcfg),
+        )
+        for b in range(B)
+    ]
+    masks = batch.masks * batch.valid_masks
+    imgs = _valid_blend(batch.imgs, batch.valid_masks)
+    rendered = _valid_blend(torch.stack([o["img"] for o in outs]),
+                            batch.valid_masks)
+    inv = 1.0 - torch.stack([dilate_mask(m) for m in masks])[..., None]
+    loss = rgb_l1_ssim(rendered, imgs, inv) * lcfg.w_rgb
+    loss = loss + lcfg.w_scale_var * L.scale_variance_loss(
+        scene.bg.scales, scene.bg.get_alive()
+    )
+    return loss, {"radii": torch.stack([o["radii"] for o in outs])}
+
+
 def compute_dynamic_losses(
     scene: SceneModel,
     batch: FrameBatch,  # B == 1
     tracks: TrackBatch,
-    taps: torch.Tensor,  # (1, S, N_all, 2)
+    taps: torch.Tensor | None,  # (1, S, N_all, 2)
     lcfg: LossesConfig,
     rcfg: RenderConfig,
     stage: str,
     epoch,
     num_window_frames: int,
-    batch4_imgs: torch.Tensor | None = None,
+    batch4_imgs: torch.Tensor | None = None,  # (1, H/4, W/4, 3) guide
     flow_fn=None,
 ):
     """Dynamic branch: full blurry render + tracks, depth, mask, motion and
     exposure regularizers. Returns (loss, aux dict)."""
-    if batch4_imgs is not None or flow_fn is not None:
+    if flow_fn is not None:
         raise NotImplementedError(
-            "the multires guide and the exposure-consistency (flow) terms "
-            "come with the other-loss-branches port slice"
+            "the exposure-consistency (flow) term needs the PWC-Net port "
+            "(a later slice)"
         )
     _, H, W = batch.imgs.shape[:3]
     img_wh = (W, H)
-    dev = batch.imgs.device
 
     t = batch.ts[0].to(torch.float32)
     out = render(
@@ -156,19 +276,13 @@ def compute_dynamic_losses(
         target_ts=tracks.target_ts.to(torch.float32),
         target_w2cs=tracks.target_w2cs,
         return_mask=True, return_depth=True, bg_color=1.0,
-        num_exposure=rcfg.num_exposure, cap=rcfg.tile_cap,
-        use_pallas=rcfg.use_pallas, means2d_tap=taps[0],
-        bucketed=rcfg.bucketed,
-        camera_mode=rcfg.camera_mode,
-        max_tiles_per_gauss=rcfg.max_tiles_per_gauss,
-        return_exposure_stack=False,
+        means2d_tap=_tap(taps, 0), return_exposure_stack=False,
+        **_render_kw(rcfg),
     )
 
     masks = (batch.masks * batch.valid_masks)[0]  # (H, W)
-    valid = batch.valid_masks[0]
-    bg_color = torch.ones((3,), device=dev)
-    img_gt = batch.imgs[0] * valid[..., None] + (1 - valid[..., None]) * bg_color
-    rendered = out["img"] * valid[..., None] + (1 - valid[..., None]) * bg_color
+    img_gt = _valid_blend(batch.imgs[0], batch.valid_masks[0])
+    rendered = _valid_blend(out["img"], batch.valid_masks[0])
 
     mask_dilated = dilate_mask(masks)[..., None]
     rgb_dyn = rgb_l1_ssim(rendered[None], img_gt[None], mask_dilated[None])
@@ -246,13 +360,21 @@ def compute_dynamic_losses(
     )
     loss = loss + exp_reg * lcfg.w_exposure_reg
 
-    # Multi-resolution consistency against the (detached) blurry input.
+    # Multi-resolution consistency against the (detached) blurry input, or
+    # against the multires guide once the epoch gate opens. The gate is a
+    # multiplier, so a closed gate gives an exact zero gradient.
     masks_down = downsample_area(masks[..., None], 4)
     sharp_down = downsample_area(out["pred_sharp_img"], 4) * masks_down
-    blur_down = downsample_area(img_gt, 4) * masks_down
-    loss = loss + lcfg.w_multires * torch.mean(
-        torch.abs(sharp_down - blur_down.detach())
-    )
+    if batch4_imgs is None:
+        blur_down = downsample_area(img_gt, 4) * masks_down
+        loss = loss + lcfg.w_multires * torch.mean(
+            torch.abs(sharp_down - blur_down.detach())
+        )
+    else:
+        guide = batch4_imgs[0] * masks_down
+        keep = torch.mean(torch.abs(sharp_down - guide.detach()))
+        gate = float(int(epoch) > lcfg.exposure_cons_start_epoch)
+        loss = loss + lcfg.w_multires * gate * keep
 
     aux = {
         "radii": out["radii"][None],  # (B=1, S, N)
@@ -316,20 +438,26 @@ def make_train_step(
     subframe_sharding=None,
     tile_mesh=None,
 ):
-    """Build the train step for one branch combination. Only the dynamic
-    branch alone is ported: ``step(state, epoch, None, batch_dyn, tracks,
-    None, None) -> (state, loss, aux)`` updates ``state.scene`` in place."""
-    if has_static or has_reg or not has_dynamic:
+    """Build the train step for one branch combination:
+    ``step(state, epoch, batch_static, batch_dyn, tracks, batch_reg,
+    batch4_imgs) -> (state, loss, aux)``; ``state.scene`` is updated in
+    place and aux holds one dict per branch that ran.
+
+    Density statistics come from the last branch that ran, reg > dynamic >
+    static, as in the reference (each branch overwrites the statistic the
+    densifier reads); only that branch's render carries a means2d tap.
+    """
+    if flow_fn is not None:
         raise NotImplementedError(
-            "only has_dynamic=True with has_static=has_reg=False is ported; "
-            "the static and static-reg branches come in a later slice"
-        )
-    if has_batch4 or flow_fn is not None:
-        raise NotImplementedError(
-            "the multires guide and flow_fn come in a later slice"
+            "flow_fn (the exposure-consistency term) needs the PWC-Net port "
+            "(a later slice)"
         )
     if subframe_sharding is not None or tile_mesh is not None:
         raise NotImplementedError("multi-device training is a later slice")
+    if not (has_static or has_dynamic or has_reg):
+        raise ValueError("the step needs at least one loss branch")
+    stats_branch = ("reg" if has_reg else "dynamic" if has_dynamic
+                    else "static")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -337,14 +465,34 @@ def make_train_step(
                 batch_reg, batch4_imgs):
         scene = state.scene
         S = rcfg.num_exposure
-        n_all = scene.num_fg + scene.num_bg
+        n_fg, n_bg = scene.num_fg, scene.num_bg
         dev = scene.fg.means.device
-        tap = torch.zeros((1, S, n_all, 2), device=dev, requires_grad=True)
+        tap_shape = {
+            "static": lambda: (batch_static.imgs.shape[0], S, n_bg, 2),
+            "dynamic": lambda: (1, S, n_fg + n_bg, 2),
+            "reg": lambda: (batch_reg.imgs.shape[0], 1, n_bg, 2),
+        }[stats_branch]()
+        tap = torch.zeros(tap_shape, device=dev, requires_grad=True)
+        taps = lambda name: tap if name == stats_branch else None
+
         scene.zero_grad(set_to_none=True)
-        loss, aux = compute_dynamic_losses(
-            scene, batch_dyn, tracks, tap, lcfg, rcfg, stage, epoch,
-            num_window_frames,
-        )
+        loss = 0.0
+        aux = {}
+        if has_static:
+            l, aux["static"] = compute_static_losses(
+                scene, batch_static, taps("static"), lcfg, rcfg, stage)
+            loss = loss + l
+        if has_dynamic:
+            l, aux["dynamic"] = compute_dynamic_losses(
+                scene, batch_dyn, tracks, taps("dynamic"), lcfg, rcfg, stage,
+                epoch, num_window_frames,
+                batch4_imgs=batch4_imgs if has_batch4 else None,
+            )
+            loss = loss + l
+        if has_reg:
+            l, aux["reg"] = compute_static_reg_losses(
+                scene, batch_reg, taps("reg"), lcfg, rcfg, stage)
+            loss = loss + l
         loss.backward()
         grads = {
             n: (p.grad if p.grad is not None else torch.zeros_like(p))
@@ -356,13 +504,17 @@ def make_train_step(
         opt_state = optimizer.update(grads, state.opt_state, scene)
         scene.zero_grad(set_to_none=True)
 
-        H, W = batch_dyn.imgs.shape[1:3]
+        last = batch_reg if has_reg else batch_dyn if has_dynamic \
+            else batch_static
+        H, W = last.imgs.shape[1:3]
         stats = accumulate_density_stats(
-            state.stats, tap.grad, aux["radii"], (W, H), 0
+            state.stats, tap.grad, aux[stats_branch]["radii"], (W, H),
+            0 if stats_branch == "dynamic" else n_fg,
         )
-        aux = {k: v.detach() for k, v in aux.items()}
+        aux = {b: {k: v.detach() for k, v in a.items()}
+               for b, a in aux.items()}
         new_state = TrainState(scene=scene, opt_state=opt_state,
                                step=state.step + 1, stats=stats)
-        return new_state, loss.detach(), {"dynamic": aux}
+        return new_state, loss.detach(), aux
 
     return step_fn

@@ -73,8 +73,17 @@ def test_cpu_calls_leave_launch_counters_at_zero():
     acc, tf = tr.composite_tiles_window(dyn, st, counts, ids, 4, 5, True)
     (acc.sum() + tf.sum()).backward()
     assert dyn.grad is not None and st.grad is not None
+    d1 = dyn[:, 0].detach().clone().requires_grad_(True)
+    acc, tf = tr.composite_tiles_split(d1, st, counts, ids, 4, 5, True)
+    (acc.sum() + tf.sum()).backward()
+    data = torch.cat([dyn[:, 0, :5], st[:, :1], dyn[:, 0, 5:6], st[:, 1:]],
+                     1).detach().requires_grad_(True)
+    acc, tf = tr.composite_tiles(data, counts, 4, 4)
+    (acc.sum() + tf.sum()).backward()
+    assert d1.grad is not None and data.grad is not None
     assert tr.LAUNCHES == before
-    assert before == {"window_fwd": 0, "window_bwd": 0}
+    assert before == {k: 0 for k in ("window_fwd", "window_bwd", "split_fwd",
+                                     "split_bwd", "dense_fwd", "dense_bwd")}
 
 
 def test_cuda_requested_without_cuda_raises():
@@ -106,6 +115,21 @@ def test_kernel_wrappers_refuse_cpu_or_mixed_inputs():
     with pytest.raises(ValueError, match="CUDA tensors"):
         tr.window_bwd_cuda(dyn, st, counts, ids, None, None, None, None, 4,
                            5, True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tr.split_fwd_cuda(dyn[:, 0], st, counts, ids, 4, 5, True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tr.split_bwd_cuda(dyn[:, 0], st, counts, ids, None, None, None,
+                          None, 4, 5, True)
+    data = torch.zeros((8, 11, 128))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tr.dense_fwd_cuda(data, counts, 4, 4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tr.dense_bwd_cuda(data, counts, None, None, None, None, 4, 4)
+    with pytest.raises(TypeError):
+        tr._check_dense_inputs(data, counts.long(), 4)
+    with pytest.raises(ValueError):
+        tr._check_dense_inputs(data, counts, 5)
+    assert tr._check_dense_inputs(data, counts, 4) == (8, 11, 128)
     with pytest.raises(TypeError):
         tr._check_window_inputs(dyn, st, counts.long(), ids, 5, True)
     with pytest.raises(ValueError):
