@@ -46,7 +46,27 @@ together), then:
      reg through K5) and at 64x48 (windows through K4, with S x 4 split
      launches per direction per step, reg through K5); the stage-1 step at
      64x48 (S x 3 split launches); K4 is timed and held against its twin
-     on the 64x48 stage-2 run's inputs.
+     on the 64x48 stage-2 run's inputs;
+  7. the scatter-output window compositor K6 (the port's D4_SCATTER
+     path, ops/rasterize.py::_USE_SCATTER, set for these phases and
+     restored): K6 against its twins on random buckets (caps 128-1024,
+     nchan 11 and 5, pad rows on the trash row); the dynamic step with
+     the flag off, on, on, off; the stage-2 step through K6 (16 scatter
+     launches per direction per step, none of K1/K2) and K6 on one
+     step's 16 recorded calls, against its twins and timed (the kernels
+     line's K6 times);
+  8. the training lifecycle at the bench shape, through K6
+     (phase_lifecycle): tracks and static points from the bench scene,
+     the port's init on the card (Procrustes for 10 bases x 24 frames,
+     1000 initial-optim iterations), padding to the pipeline's
+     capacities, a stage-2 TrainLoop of 8 steps whose density control
+     densifies and culls three times and resets the opacities once
+     (alive counts, new-slot moments, event times printed and checked;
+     launch counts exact), and a bit-exact checkpoint round trip;
+  9. the 128x128 stage-2 loop with a densify event on the card and on the
+     CPU (losses within 1e-5, equal alive masks), and on the card, under
+     torch.use_deterministic_algorithms, 2 steps + checkpoint + load + 2
+     steps against 4 steps straight, bit for bit.
 
 Bounds count what the run's data needs: the (pixel, Gaussian) pairs up to
 each row's stop chunk, and of each payload only the slots walked.
@@ -82,7 +102,7 @@ TIMED_STEPS = 5
 EPOCH = 25  # > 20: the pose-net gate and the multires guide are on
 DEV = "cuda"
 # Kernel-vs-twin bars (float32 reassociation: per-pixel sums of up to 1024
-# terms in another order; gst summed over S with atomics in any order).
+# terms in another order; gst summed over S in another order).
 FWD_TOL = 2e-4  # max |kernel - twin| / max(1, max |twin|)
 BWD_TOL = 2e-3  # max |kernel - twin| / max |twin|
 # Card rates for bounds (NVIDIA data sheets; dense FP32 outside the tensor
@@ -115,7 +135,18 @@ KERNEL_INFO = {
                   "window_fwd_kernel at S=1"),
     "split_bwd": (608, "_bwd_kernel_split", "window_composite.cu",
                   "window_bwd_kernel at S=1"),
+    "window_scatter_fwd": (1561, "_fwd_kernel_window_scatter",
+                           "window_composite.cu",
+                           "window_fwd_kernel with the row map"),
+    "window_scatter_bwd": (1643, "_composite_bwd_window_scatter (the K2 "
+                           "body at image rows sids[t])",
+                           "window_composite.cu",
+                           "window_bwd_kernel with the row map"),
 }
+SCATTER_T_IMG = 256  # image tiles of the random K6 cases' shared buffer
+LIFE_BASES = 10  # the lifecycle phase's motion bases (pipeline default)
+LIFE_START = 72  # its loop's first step (see phase_lifecycle)
+LIFE_STEPS = 8
 
 
 def fail(msg):
@@ -298,12 +329,10 @@ def make_step(kind, scene, T, rcfg):
                             rcfg, stage, T, **flags))
 
 
-def bench_state(dev, kind="dynamic"):
-    """bench.py's scene, batch and tracks, drawn in the same order, and the
-    step of ``kind`` (STEP_KINDS) to drive: (state, drive(state) -> (state,
-    loss, aux)). The static batch, the reg batch and the multires guide
-    are drawn after bench.py's draws."""
-    from deblur4dgs_tpu_torch.configs import RenderConfig
+def bench_scene_batches(dev):
+    """bench.py's scene, batch and tracks, drawn in the same order, then the
+    static batch, the reg batch and the multires guide: (scene, (static,
+    dyn, tracks, reg, batch4))."""
     from deblur4dgs_tpu_torch.models.gaussians import Gaussians
     from deblur4dgs_tpu_torch.models.motion_bases import MotionBases
     from deblur4dgs_tpu_torch.models.move_model import init_move_model
@@ -335,9 +364,6 @@ def bench_state(dev, kind="dynamic"):
         move=init_move_model(torch.Generator().manual_seed(0), T,
                              device=dev),
     )
-    rcfg = RenderConfig(num_exposure=NUM_EXPOSURE, tile_cap=TILE_CAP,
-                        max_tiles_per_gauss=32)
-    state, step = make_step(kind, scene, T, rcfg)
     f = 1000.0
     K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], f32)
     eye = np.eye(4, dtype=f32)
@@ -360,9 +386,6 @@ def bench_state(dev, kind="dynamic"):
         target_confidences=t(np.ones((2, P), f32)),
         target_track_depths=t(rng.uniform(2, 8, (2, P)).astype(f32)),
     )
-    if kind == "dynamic":
-        return state, lambda s: step(s, EPOCH, None, batch, tracks, None,
-                                     None)
     w2cs = np.tile(eye, (3, 1, 1))
     w2cs[:, 0, 3] = [-0.02, 0.0, 0.02]
     static = FrameBatch(
@@ -376,7 +399,22 @@ def bench_state(dev, kind="dynamic"):
         imgs=t(rng.uniform(0, 1, (1, H, W, 3)).astype(f32)),
         masks=t(rect_masks(rng, 1)))
     b4 = t(rng.uniform(0, 1, (1, H // 4, W // 4, 3)).astype(f32))
-    args = step_args(kind, static, batch, tracks, reg, b4)
+    return scene, (static, batch, tracks, reg, b4)
+
+
+def bench_rcfg():
+    from deblur4dgs_tpu_torch.configs import RenderConfig
+    return RenderConfig(num_exposure=NUM_EXPOSURE, tile_cap=TILE_CAP,
+                        max_tiles_per_gauss=32)
+
+
+def bench_state(dev, kind="dynamic"):
+    """bench.py's scene and batches (bench_scene_batches) and the step of
+    ``kind`` (STEP_KINDS) to drive: (state, drive(state) -> (state, loss,
+    aux))."""
+    scene, batches = bench_scene_batches(dev)
+    state, step = make_step(kind, scene, NUM_FRAMES, bench_rcfg())
+    args = step_args(kind, *batches)
     return state, lambda s: step(s, EPOCH, *args)
 
 
@@ -454,6 +492,59 @@ def phase_random(tr, errs, kind, cases):
     torch.cuda.synchronize()
 
 
+def scatter_case(seed, nchan, cap, dev):
+    """Random K6 inputs: a 64-row bucket of random_bucket over a 256-tile
+    image, its empty row 0 and last 4 rows turned into pad rows (count 0,
+    sid T_img), and the shared output buffers (T_img + 1 rows)."""
+    dyn, st, counts, ids = random_bucket(seed, 64, NUM_EXPOSURE, nchan, cap,
+                                         80, SCATTER_T_IMG, dev)
+    counts[-4:] = 0
+    ids[0] = SCATTER_T_IMG
+    ids[-4:] = SCATTER_T_IMG
+    acc = torch.zeros((SCATTER_T_IMG + 1, NUM_EXPOSURE, nchan, 256),
+                      device=dev)
+    tf = torch.ones((SCATTER_T_IMG + 1, NUM_EXPOSURE, 256), device=dev)
+    return dyn, st, counts, ids, acc, tf, 80, nchan, True
+
+
+@torch.no_grad()
+def compare_scatter_fwd(tr, fa):
+    """K6 forward vs its twin; each writes its own copy of the shared
+    buffers (zeros, trash-row fill), compared whole."""
+    k_fwd, p_fwd, _, _ = tr._COMPOSITORS["window_scatter"]
+    ins, (acc, tf), cfg = fa[:4], fa[4:6], fa[6:]
+    a_k, t_k = k_fwd(*ins, torch.zeros_like(acc), torch.ones_like(tf), *cfg)
+    a_p, t_p = p_fwd(*ins, torch.zeros_like(acc), torch.ones_like(tf), *cfg)
+    scale = max(1.0, float(a_p.abs().max()))
+    err = max(float((a_k - a_p).abs().max()), float((t_k - t_p).abs().max()))
+    return err, err / scale
+
+
+@torch.no_grad()
+def phase_random_scatter(tr, errs):
+    """K6 vs its twins on random buckets (caps 128-1024, nchan 11 and 5),
+    backward against the twin's forward outputs and random cotangents."""
+    for nchan in (11, 5):
+        for i, cap in enumerate((128, 256, 512, 1024)):
+            fa = scatter_case(60 + i + nchan, nchan, cap, DEV)
+            e, r = compare_scatter_fwd(tr, fa)
+            errs.add("window_scatter_fwd", e, r, FWD_TOL,
+                     f"random cap={cap} nchan={nchan}")
+            acc, tf = tr.composite_window_scatter_plain(*fa)
+            g = torch.Generator(device=DEV).manual_seed(i)
+            ba = fa[:4] + (acc, tf, torch.randn(acc.shape, generator=g,
+                                                device=DEV),
+                           torch.randn(tf.shape, generator=g, device=DEV)) \
+                + fa[6:]
+            e2, r2 = compare_bwd(tr, "window_scatter", ba)
+            errs.add("window_scatter_bwd", e2, r2, BWD_TOL,
+                     f"random cap={cap} nchan={nchan}")
+            print(f"# random window_scatter cap={cap} nchan={nchan}: "
+                  f"forward max abs err {e:.3e} (rel {r:.3e}), backward "
+                  f"{e2:.3e} (rel to max |g| {r2:.3e})")
+    torch.cuda.synchronize()
+
+
 @contextlib.contextmanager
 def recording(tr, kind):
     """Record the arguments of every kernel call of ``kind`` (the launches
@@ -522,6 +613,63 @@ def measure(tr, errs, kind, rec, rates, reps=10):
               f"{live}; kernel {ms[k]:.3f} ms, twin {plain[k]:.3f} ms")
     torch.cuda.synchronize()
     return ms, plain, bounds
+
+
+@torch.no_grad()
+def measure_scatter(tr, errs, rec, rates, reps=10):
+    """measure() for K6: its calls' shared buffers are indexed by the row
+    map, so the first 64 rows of each call's bucket inputs go against the
+    whole buffers. Bytes per call: the bucket's inputs as far as walked,
+    and its rows of the outputs (forward) or of the residuals, cotangents
+    and gradients (backward)."""
+    k_fwd, p_fwd, k_bwd, p_bwd = tr._COMPOSITORS["window_scatter"]
+    bw, peak = rates
+    cut = lambda a: tuple(x[:64] for x in a[:4]) + tuple(a[4:])
+    for i, (fa, ba) in enumerate(zip(rec["fwd"], rec["bwd"])):
+        e, r = compare_scatter_fwd(tr, cut(fa))
+        errs.add("window_scatter_fwd", e, r, FWD_TOL, f"real call {i}")
+        e2, r2 = compare_bwd(tr, "window_scatter", cut(ba))
+        errs.add("window_scatter_bwd", e2, r2, BWD_TOL, f"real call {i}")
+        print(f"# real window_scatter call {i} {tuple(fa[0].shape)}: fwd err "
+              f"{e:.3e} (rel {r:.3e}), bwd err {e2:.3e} (rel {r2:.3e})")
+    ms = {"fwd": cuda_ms(lambda: [k_fwd(*a) for a in rec["fwd"]], reps),
+          "bwd": cuda_ms(lambda: [k_bwd(*a) for a in rec["bwd"]], reps)}
+    plain = {"fwd": cuda_ms(lambda: [p_fwd(*a) for a in rec["fwd"]], 1),
+             "bwd": cuda_ms(lambda: [p_bwd(*a) for a in rec["bwd"]], 1)}
+    pairs = live = by_f = by_b = ops_f = ops_b = 0
+    for fa, ba in zip(rec["fwd"], rec["bwd"]):
+        nchan = fa[7]
+        acc, tf, work = tr.composite_window_plain(*fa[:4], *fa[6:],
+                                                  return_work=True)
+        pairs += work["pairs"]
+        live += work["live"]
+        ops_f += OPS_PAIR * work["pairs"] + (2 * nchan + 3) * work["live"]
+        ops_b += OPS_PAIR * work["pairs"] + (4 * nchan + 36) * work["live"]
+        ins = input_bytes(fa[:4], work["slots"])
+        rows = nbytes(acc, tf)  # this bucket's rows of accum and tfin
+        by_f += ins + rows
+        by_b += ins + 2 * rows + nbytes(*k_bwd(*ba))
+    bounds = {}
+    for k, by, ops in (("fwd", by_f, ops_f), ("bwd", by_b, ops_b)):
+        t_bytes, t_ops = by / bw * 1e3, ops / peak * 1e3
+        bounds[k] = (max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations")
+        print(f"# window_scatter {k}: {by / 1e9:.3f} GB -> {t_bytes:.4f} ms; "
+              f"{ops / 1e9:.2f} Gop -> {t_ops:.4f} ms; pairs {pairs}, live "
+              f"{live}; kernel {ms[k]:.3f} ms, twin {plain[k]:.3f} ms")
+    torch.cuda.synchronize()
+    return ms, plain, bounds
+
+
+@contextlib.contextmanager
+def scatter_path(tr, on=True):
+    """The port's D4_SCATTER switch, set for the block and restored."""
+    old = tr._USE_SCATTER
+    tr._USE_SCATTER = on
+    try:
+        yield
+    finally:
+        tr._USE_SCATTER = old
 
 
 # ---------------------------------------------------------------------------
@@ -623,6 +771,349 @@ def phase_stage1(tr):
     del state
     torch.cuda.empty_cache()
     return times, launches
+
+
+def phase_scatter_ab(tr):
+    """The dynamic step at the bench shape with the scatter path off, on,
+    on, off (one state; TIMED_STEPS steps each): K1/K2 launches with the
+    flag off, K6 with it on."""
+    state, drive = bench_state(DEV)
+    nb = n_buckets()
+    times = {}
+    for on in (False, True, True, False):
+        want = ({"window_scatter_fwd": nb, "window_scatter_bwd": nb} if on
+                else {"window_fwd": nb, "window_bwd": nb})
+        with scatter_path(tr, on):
+            state, t, _ = drive_steps(
+                tr, state, drive, f"dynamic step, scatter {'on' if on else 'off'}",
+                want)
+        times.setdefault(on, []).append(statistics.median(t))
+    del state
+    torch.cuda.empty_cache()
+    return times
+
+
+def phase_stage2_scatter(tr, errs, rates):
+    """The stage-2 step at the bench shape through K6 (16 scatter launches
+    per direction per step), and K6 on one step's 16 recorded calls: held
+    against its twins, timed, bounded."""
+    nb = n_buckets()
+    with scatter_path(tr):
+        state, drive = bench_state(DEV, "stage2")
+        state, times, launches = drive_steps(
+            tr, state, drive, "stage-2 step, scatter",
+            {"window_scatter_fwd": 4 * nb, "window_scatter_bwd": 4 * nb,
+             "dense_fwd": 1, "dense_bwd": 1})
+        with recording(tr, "window_scatter") as rec:
+            state, _, _ = drive(state)
+            torch.cuda.synchronize()
+    check(len(rec["fwd"]) == 4 * nb and len(rec["bwd"]) == 4 * nb,
+          f"recorded {len(rec['fwd'])}/{len(rec['bwd'])} scatter calls")
+    del state
+    torch.cuda.empty_cache()
+    return times, measure_scatter(tr, errs, rec, rates)
+
+
+def state_tensors(state, epoch=None) -> dict:
+    """Every tensor and counter of a TrainState, by name."""
+    out = {f"scene/{k}": v for k, v in state.scene.state_dict().items()}
+    for label, gs in state.opt_state.items():
+        for k in ("count", "mini_step", "gradient_step"):
+            out[f"opt/{label}/{k}"] = getattr(gs, k)
+        for kind in ("mu", "nu", "acc_grads"):
+            for n, x in getattr(gs, kind).items():
+                out[f"opt/{label}/{kind}/{n}"] = x
+    out.update({f"stats/{k}": v for k, v in state.stats._asdict().items()})
+    out["step"] = state.step
+    if epoch is not None:
+        out["epoch"] = epoch
+    return out
+
+
+def assert_states_equal(a, b, label):
+    check(set(a) == set(b), f"{label}: state keys differ")
+    for k in a:
+        x, y = a[k], b[k]
+        same = (torch.equal(x, y) and x.dtype == y.dtype) \
+            if torch.is_tensor(x) else x == y
+        check(same, f"{label}: {k} differs")
+
+
+def phase_lifecycle(tr):
+    """The training lifecycle at the bench shape, through K6: observations
+    from the bench scene (tracks = its 40k fg Gaussians' world positions
+    over the 24 frames, all visible, confidence 1; static points = its 60k
+    bg means with seeded unit normals), the port's init on the card
+    (Procrustes for 10 bases x 24 frames, 1000 initial-optim iterations),
+    padding to the pipeline's capacities (fg x2.0, bg x1.5, rounded up to
+    256), a stage-2 TrainLoop of LIFE_STEPS steps with density control,
+    and a checkpoint round trip. The loop's state starts at step 72, where
+    a resumed stage would: the reference's cull waits for step % (control
+    period) > 3 x 24 frames; with control every 2 steps and an opacity
+    reset every 40 controls, steps 74, 76 and 78 densify and cull and step
+    80 resets the opacities."""
+    from deblur4dgs_tpu_torch.configs import (
+        LossesConfig, OptimizerConfig, SceneLRConfig)
+    from deblur4dgs_tpu_torch.data.observations import (
+        StaticObservations, TrackObservations)
+    from deblur4dgs_tpu_torch.models.gaussians import pad_to_capacity
+    from deblur4dgs_tpu_torch.models.move_model import init_move_model
+    from deblur4dgs_tpu_torch.models.scene import (
+        SceneModel, compute_poses_fg)
+    from deblur4dgs_tpu_torch.train import init as I
+    from deblur4dgs_tpu_torch.train.checkpoints import (
+        load_checkpoint, save_checkpoint, template_state)
+    from deblur4dgs_tpu_torch.train.loop import TrainLoop
+    from deblur4dgs_tpu_torch.train.optimizers import make_optimizer
+    from deblur4dgs_tpu_torch.train.trainer import init_train_state
+
+    T = NUM_FRAMES
+    scene0, batches = bench_scene_batches(DEV)
+    with torch.no_grad():
+        xyz, _ = compute_poses_fg(scene0, torch.arange(
+            T, dtype=torch.float32, device=DEV))
+        seen = torch.ones(xyz.shape[:2], dtype=torch.bool, device=DEV)
+        tracks = TrackObservations(xyz.contiguous(), seen, ~seen,
+                                   seen.float(), scene0.fg.get_colors())
+        normals = np.random.default_rng(7).normal(size=(NUM_BG, 3))
+        normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
+        points = StaticObservations(
+            scene0.bg.means.detach().clone(),
+            torch.as_tensor(normals, dtype=torch.float32, device=DEV),
+            scene0.bg.get_colors())
+    K = batches[1].Ks[0]
+    Ks, w2cs = K.expand(T, 3, 3), torch.eye(4, device=DEV).expand(T, 4, 4)
+    del scene0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    cano_t = int(torch.argmax(tracks.visibles.sum(0)))
+    bases, coefs, tracks = I.init_motion_params_with_procrustes(
+        tracks, LIFE_BASES, cano_t, seed=0, device=DEV)
+    fg = I.init_fg_from_tracks_3d(cano_t, tracks, coefs, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    t_fit = time.time() - t0
+    fg, bases, losses = I.run_initial_optim(fg, bases, tracks, Ks, w2cs,
+                                            num_iters=1000, device=DEV)
+    torch.cuda.synchronize()
+    t_optim = time.time() - t0 - t_fit
+    bg, bg_scale = I.init_bg(points, device=DEV)
+    fg = pad_to_capacity(fg, I.round_capacity(int(fg.capacity * 2.0)))
+    bg = pad_to_capacity(bg, I.round_capacity(int(bg.capacity * 1.5)))
+    scene = SceneModel(fg, bg, bases, init_move_model(
+        torch.Generator().manual_seed(0), T, device=DEV))
+    torch.cuda.synchronize()
+    t_init = time.time() - t0
+    losses = losses.cpu().numpy()
+    print(f"# lifecycle init: {t_init:.3f} s (outlier filter, k-means, "
+          f"{LIFE_BASES}x{T} Procrustes fits and fg init {t_fit:.3f} s; "
+          f"1000 initial-optim iterations {t_optim:.3f} s); {len(tracks.xyz)}"
+          f" tracks kept; optim loss {losses[0]:.6f} -> {losses[-1]:.6f}; "
+          f"capacities fg {fg.capacity} bg {bg.capacity}, bg scale "
+          f"{bg_scale:.4f}")
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"initial optim losses {losses[:3]} ... {losses[-3:]}")
+
+    ocfg = OptimizerConfig(warmup_steps=0, control_every=2,
+                           reset_opacity_every_n_controls=40)
+    lr = SceneLRConfig()
+    state = init_train_state(scene, lr, ocfg)
+    state.step = LIFE_START
+    work = os.path.join(HERE, "build", "chip_smoke")
+    loop = TrainLoop(state, make_optimizer(scene, lr, ocfg), LossesConfig(),
+                     bench_rcfg(), ocfg, T, work, "second", has_static=True,
+                     has_dynamic=True, has_reg=True, has_batch4=True,
+                     bg_scene_scale=bg_scale, checkpoint_every=0, log_every=4)
+    loop.epoch = EPOCH
+    events = []
+    control = loop._maybe_control
+
+    def timed_control():
+        sc = loop.state.scene
+        before = (sc.fg.alive.clone(), sc.bg.alive.clone())
+        torch.cuda.synchronize()
+        tc = time.time()
+        flags = control()
+        torch.cuda.synchronize()
+        if flags is None:
+            return None
+        ms = (time.time() - tc) * 1e3
+        born = {}
+        for part, a0 in zip(("fg", "bg"), before):
+            a1 = getattr(loop.state.scene, part).alive
+            new = (a1 > 0.5) & (a0 < 0.5)
+            born[part] = int(new.sum())
+            for label, gs in loop.state.opt_state.items():
+                if label.startswith(part + "."):
+                    for kind in ("mu", "nu"):
+                        for n, x in getattr(gs, kind).items():
+                            check(not bool(x[new].any()),
+                                  f"step {loop.global_step}: {kind} of {n} "
+                                  "not zero at a new slot")
+        events.append(dict(
+            step=loop.global_step, ms=ms,
+            flags={k: v for k, v in flags.items() if v},
+            fg_alive=(int(before[0].sum()), int(sc.fg.alive.sum())),
+            bg_alive=(int(before[1].sum()), int(sc.bg.alive.sum())),
+            born=born))
+        return flags
+
+    loop._maybe_control = timed_control
+    args = step_args("stage2", *batches)
+    with scatter_path(tr):
+        zero_launches(tr)
+        times, step_losses = [], []
+        for _ in range(LIFE_STEPS):
+            torch.cuda.synchronize()
+            ts_ = time.time()
+            loss = loop.train_step(*args)
+            torch.cuda.synchronize()
+            times.append(time.time() - ts_)
+            step_losses.append(float(loss))
+        launches = dict(tr.LAUNCHES)
+    loop.finish()
+    nb = n_buckets()
+    print(f"# lifecycle loop: steps {LIFE_START + 1}-{loop.global_step}, "
+          f"times (s) {[round(x, 6) for x in times]}; losses {step_losses}; "
+          f"launches {launches}")
+    for ev in events:
+        print(f"# lifecycle control at step {ev['step']}: {ev['flags']}, "
+              f"{ev['ms']:.3f} ms; fg alive {ev['fg_alive'][0]} -> "
+              f"{ev['fg_alive'][1]}, bg alive {ev['bg_alive'][0]} -> "
+              f"{ev['bg_alive'][1]}; new slots {ev['born']}")
+    check(all(np.isfinite(step_losses)), f"lifecycle losses {step_losses}")
+    want = {"window_scatter_fwd": 4 * nb, "window_scatter_bwd": 4 * nb,
+            "dense_fwd": 1, "dense_bwd": 1}
+    for k in tr.LAUNCHES:
+        check(launches[k] == want.get(k, 0) * LIFE_STEPS,
+              f"lifecycle: {k} launched {launches[k]} times, expected "
+              f"{want.get(k, 0) * LIFE_STEPS}")
+    kinds = [ev["flags"] for ev in events]
+    check(any(f.get("do_densify") and f.get("do_cull") for f in kinds)
+          and any(f.get("do_reset") for f in kinds),
+          f"lifecycle control events {kinds}")
+    check(sum(sum(ev["born"].values()) for ev in events) > 0,
+          "no slot was allocated by the densify events")
+
+    path = os.path.join(work, "checkpoint_last")
+    tc = time.time()
+    save_checkpoint(path, loop.state, loop.epoch)
+    tmpl = template_state(fg.capacity, bg.capacity, LIFE_BASES, T,
+                          device=DEV)
+    got, epoch = load_checkpoint(path, tmpl)
+    torch.cuda.synchronize()
+    t_ckpt = time.time() - tc
+    assert_states_equal(state_tensors(loop.state, loop.epoch),
+                        state_tensors(got, epoch), "checkpoint round trip")
+    size = os.path.getsize(path)
+    os.remove(path)
+    print(f"# lifecycle checkpoint: {size / 1e6:.1f} MB, save + load "
+          f"{t_ckpt:.3f} s, round trip bit-exact")
+    step_ms = [t * 1e3 - next((e["ms"] for e in events
+                               if e["step"] == LIFE_START + i + 1), 0.0)
+               for i, t in enumerate(times)]
+    del loop, state, got, tmpl
+    torch.cuda.empty_cache()
+    return dict(init_s=t_init, fit_s=t_fit, optim_s=t_optim, times=times,
+                step_ms=step_ms, events=events, launches=launches)
+
+
+SMALL_OCFG = dict(warmup_steps=0, control_every=2,
+                  reset_opacity_every_n_controls=100,
+                  densify_xys_grad_threshold=2e-5)
+SMALL_START = 8  # densify when step % 200 > 8 frames: steps 10 and 12
+
+
+def small_loop(dev, arrays, inputs, work, state=None):
+    """A stage-2 TrainLoop of the small 128x128 scene on ``dev`` (its
+    state starting at step SMALL_START, or ``state``) and its batch
+    arguments."""
+    from deblur4dgs_tpu_torch import configs as C
+    from deblur4dgs_tpu_torch.convert import scene_from_numpy
+    from deblur4dgs_tpu_torch.models.gaussians import pad_to_capacity
+    from deblur4dgs_tpu_torch.train import trainer as TT
+    from deblur4dgs_tpu_torch.train.loop import TrainLoop
+    from deblur4dgs_tpu_torch.train.optimizers import make_optimizer
+
+    ocfg = C.OptimizerConfig(**SMALL_OCFG)
+    if state is None:  # 256 slots per part: free slots for the densify
+        scene = scene_from_numpy(arrays, device=dev)
+        scene.fg = pad_to_capacity(scene.fg, 256)
+        scene.bg = pad_to_capacity(scene.bg, 256)
+        state = TT.init_train_state(scene, C.SceneLRConfig(), ocfg)
+        state.step = SMALL_START
+    scene = state.scene
+    loop = TrainLoop(state, make_optimizer(scene, C.SceneLRConfig(), ocfg),
+                     C.LossesConfig(),
+                     C.RenderConfig(num_exposure=3, tile_cap=256), ocfg, 8,
+                     work, "second", has_static=True, has_dynamic=True,
+                     has_reg=True, has_batch4=True, checkpoint_every=0)
+    loop.epoch = EPOCH
+    kinds = (TT.FrameBatch, TT.FrameBatch, TT.TrackBatch, TT.FrameBatch,
+             None)
+    conv = lambda x: torch.as_tensor(x, device=dev)
+    args = [None if x is None else (conv(x) if k is None else k(*map(conv, x)))
+            for k, x in zip(kinds, inputs)]
+    return loop, args
+
+
+def phase_loop_small(tr):
+    """The 128x128 stage-2 loop with density control: (1) card vs CPU, 3
+    steps with a densify at step 10, losses within the card-vs-CPU bar and
+    equal alive masks; (2) on the card, with deterministic algorithms:
+    2 steps, save, load into template_state, 2 more == 4 steps straight,
+    bit for bit."""
+    from deblur4dgs_tpu_torch.train.checkpoints import (
+        load_checkpoint, save_checkpoint, template_state)
+
+    arrays, inputs = small_inputs((128, 128), "stage2")
+    work = os.path.join(HERE, "build", "chip_smoke")
+    out = {}
+    for dev in (DEV, "cpu"):
+        loop, args = small_loop(dev, arrays, inputs, work)
+        losses = [float(loop.train_step(*args)) for _ in range(3)]
+        sc = loop.state.scene
+        out[dev] = (losses, sc.fg.alive.cpu(), sc.bg.alive.cpu())
+    (lc, fc, bc), (lp, fp, bp) = out[DEV], out["cpu"]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+    print(f"# loop 128x128, card vs CPU over steps 9-11: losses {lc} vs {lp} "
+          f"(rel diff {worst:.3e}); alive fg {int(fc.sum())} bg "
+          f"{int(bc.sum())} (CPU {int(fp.sum())} / {int(bp.sum())}, "
+          f"from {int(arrays['fg.alive'].sum())} / "
+          f"{int(arrays['bg.alive'].sum())})")
+    check(worst <= 1e-5, f"loop 128x128 card vs CPU loss rel diff {worst:.3e}")
+    check(torch.equal(fc, fp) and torch.equal(bc, bp),
+          "loop 128x128: alive masks differ between card and CPU")
+    check(int(bc.sum()) > int(arrays["bg.alive"].sum()),
+          "loop 128x128: the densify event allocated no slot")
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        straight, args = small_loop(DEV, arrays, inputs, work)
+        for _ in range(4):
+            straight.train_step(*args)
+        first, args = small_loop(DEV, arrays, inputs, work)
+        for _ in range(2):
+            first.train_step(*args)
+        path = os.path.join(work, "checkpoint_resume")
+        save_checkpoint(path, first.state, first.epoch)
+        sc = first.state.scene
+        tmpl = template_state(sc.num_fg, sc.num_bg, sc.bases.num_bases,
+                              sc.bases.num_frames, device=DEV)
+        state, epoch = load_checkpoint(path, tmpl)
+        os.remove(path)
+        check(epoch == first.epoch and state.step == SMALL_START + 2,
+              f"resume: epoch {epoch}, step {state.step}")
+        resumed, args = small_loop(DEV, arrays, inputs, work, state)
+        resumed.epoch = epoch
+        for _ in range(2):
+            resumed.train_step(*args)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert_states_equal(state_tensors(straight.state),
+                        state_tensors(resumed.state), "resume 128x128")
+    print("# loop 128x128 resume (deterministic algorithms): 2 steps + "
+          "checkpoint + 2 steps == 4 steps straight, bit for bit")
 
 
 def phase_profile(state, drive, steps=2, top=15):
@@ -818,6 +1309,9 @@ def main():
         return 3
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # cuBLAS reproducibility under torch.use_deterministic_algorithms
+    # (phase_loop_small's resume check); read when cuBLAS starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     t_start = time.time()
 
     card = nvidia_smi_line()
@@ -855,6 +1349,7 @@ def main():
                                 (dyn[:, 0], st, counts, ids, 80, nchan,
                                  True)))
     phase_random(tr, errs, "split", split_cases)
+    phase_random_scatter(tr, errs)
 
     dyn_times, dyn_launches, _ = phase_bench(tr, errs, rates)
     s2_times, s2_launches, win, dense = phase_stage2(tr, errs, rates)
@@ -869,6 +1364,10 @@ def main():
                   "dense_bwd": 1})
     phase_small_vs_cpu(tr, errs, rates, wh=(64, 48), kind="stage1",
                        expected={"split_fwd": 3 * 3, "split_bwd": 3 * 3})
+    ab_times = phase_scatter_ab(tr)
+    s2s_times, scatter = phase_stage2_scatter(tr, errs, rates)
+    life = phase_lifecycle(tr)
+    phase_loop_small(tr)
 
     kernels = []
     full = "stage-2 step 1280x720"
@@ -879,6 +1378,9 @@ def main():
          f"{full}, its static-reg call"),
         ("split", split, split_launches, "stage-2 step 64x48, 2 steps",
          "stage-2 step 64x48, its 12 calls"),
+        ("window_scatter", scatter, life["launches"],
+         f"lifecycle stage-2 TrainLoop {full}, {LIFE_STEPS} steps",
+         f"{full} with D4_SCATTER on, its 16 window calls"),
     ):
         for d in ("fwd", "bwd"):
             k = f"{kind}_{d}"
@@ -904,7 +1406,16 @@ def main():
     print(json.dumps({"kernels": kernels}))
     print(f"# dynamic-step launches over {TIMED_STEPS} steps: "
           f"{dyn_launches}; stage-1 step: {s1_launches}")
+    for on in (False, True):
+        print(f"# dynamic step, scatter {'on ' if on else 'off'}: medians "
+              f"(ms) {[round(t * 1e3, 3) for t in ab_times[on]]} (runs "
+              f"off, on, on, off in one call)")
+    print(f"# lifecycle: init {life['init_s']:.3f} s; stage-2 loop step "
+          f"median {statistics.median(life['step_ms']):.3f} ms without its "
+          f"control event over {LIFE_STEPS} steps; control events (ms) "
+          f"{[(e['step'], round(e['ms'], 3)) for e in life['events']]}")
     for label, times in (("dynamic", dyn_times), ("stage-2", s2_times),
+                         ("stage-2 scatter", s2s_times),
                          ("stage-1", s1_times)):
         med = statistics.median(times)
         print(f"# {label} train step (1280x720, 100k Gaussians, S=11, cap "

@@ -6,7 +6,11 @@ kernels become hand-written CUDA kernels (``csrc/``) wrapped in
 ``torch.autograd.Function``s; every kernel keeps a plain PyTorch twin that
 runs on CPU tensors. This package never imports JAX or ``deblur4dgs_tpu``.
 
-Ported so far: the dynamic blur-window training step (see ROADMAP.md).
+Ported so far (ROADMAP.md): the pipeline's train steps (stage 1, stage 2
+and the dynamic step) with every TPU compositor kernel (K1-K6), and the
+training lifecycle around them: the scene bootstrap (train/init.py),
+density control (train/density.py), checkpoints (train/checkpoints.py)
+and the loop (train/loop.py).
 """
 
 import torch

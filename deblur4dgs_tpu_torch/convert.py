@@ -1,4 +1,5 @@
-"""SceneModel <-> flat dict of numpy arrays keyed by the JAX pytree paths.
+"""SceneModel / TrainState <-> flat dicts of numpy arrays keyed by the JAX
+pytree paths.
 
 No counterpart in the JAX package: this is the boundary the port's tests
 (and any checkpoint migration) cross. A key is the leaf's path in the JAX
@@ -10,6 +11,20 @@ bg, no motion_coefs, no alive) have no key.
 MLP weights: the JAX package stores ``w`` as (d_in, d_out) and applies
 ``x @ w``; nn.Linear stores ``weight`` as (d_out, d_in). The conversion
 transposes, so both packages compute the same products.
+
+A whole TrainState (train_state_to_numpy / train_state_from_numpy) adds
+the optimizer state per label of the reference's optax multi_transform
+(``fg.means``, ``move.pose`` ...) and the density statistics:
+
+    scene/<key>                  every scene_to_numpy array
+    opt/<label>/count            the inner Adam (and schedule) count
+    opt/<label>/mini_step        optax.MultiSteps counters (0 elsewhere)
+    opt/<label>/gradient_step
+    opt/<label>/mu/<key>         Adam moments of the label's leaves
+    opt/<label>/nu/<key>
+    opt/<label>/acc_grads/<key>  MultiSteps running-mean gradients
+    stats/grad_norm_acc, stats/vis_count, stats/max_radii
+    step
 """
 
 from __future__ import annotations
@@ -23,6 +38,8 @@ from deblur4dgs_tpu_torch.models.gaussians import Gaussians
 from deblur4dgs_tpu_torch.models.motion_bases import MotionBases
 from deblur4dgs_tpu_torch.models.move_model import MoveModel
 from deblur4dgs_tpu_torch.models.scene import SceneModel
+from deblur4dgs_tpu_torch.train.optimizers import GroupState, param_label
+from deblur4dgs_tpu_torch.train.trainer import DensityStats, TrainState
 
 _GAUSS_FIELDS = ("means", "quats", "scales", "colors", "opacities",
                  "motion_coefs", "alive")
@@ -39,13 +56,19 @@ def jax_key(name: str) -> tuple[str, bool]:
     return name, False
 
 
+def _np_leaf(x: torch.Tensor, transposed: bool = False) -> np.ndarray:
+    """A copy of x as a C-contiguous numpy array (transposed if asked)."""
+    a = x.detach().cpu().numpy()
+    return np.array(a.T if transposed else a, order="C", copy=True)
+
+
 def scene_to_numpy(scene: SceneModel) -> dict[str, np.ndarray]:
-    """Every parameter and the alive buffers, keyed by JAX pytree path."""
+    """Every parameter and the alive buffers, keyed by JAX pytree path
+    (copies: later in-place updates of the scene do not show through)."""
     out = {}
     for name, x in list(scene.named_parameters()) + list(scene.named_buffers()):
         key, transposed = jax_key(name)
-        a = x.detach().cpu().numpy()
-        out[key] = np.ascontiguousarray(a.T if transposed else a)
+        out[key] = _np_leaf(x, transposed)
     return out
 
 
@@ -93,3 +116,56 @@ def scene_from_numpy(arrays: dict[str, np.ndarray],
             time_params=t("move.time_params"),
         ),
     )
+
+
+def train_state_to_numpy(state: TrainState) -> dict[str, np.ndarray]:
+    """The whole TrainState as a flat dict (layout in the module doc)."""
+    out = {f"scene/{k}": v for k, v in scene_to_numpy(state.scene).items()}
+    for label, gs in state.opt_state.items():
+        for k in ("count", "mini_step", "gradient_step"):
+            out[f"opt/{label}/{k}"] = np.asarray(getattr(gs, k), np.int32)
+        for kind in ("mu", "nu", "acc_grads"):
+            for name, x in getattr(gs, kind).items():
+                key, transposed = jax_key(name)
+                out[f"opt/{label}/{kind}/{key}"] = _np_leaf(x, transposed)
+    for name, x in state.stats._asdict().items():
+        out[f"stats/{name}"] = _np_leaf(x)
+    out["step"] = np.asarray(state.step, np.int32)
+    return out
+
+
+def train_state_from_numpy(arrays: dict[str, np.ndarray],
+                           device="cuda") -> TrainState:
+    """Build a TrainState on ``device`` from a train_state_to_numpy-style
+    dict. A label's moments exist for every parameter of its group; its
+    acc_grads only where the dict holds them (the MultiSteps groups)."""
+    dev = resolve_device(device)
+    scene = scene_from_numpy({k[len("scene/"):]: v for k, v in arrays.items()
+                              if k.startswith("scene/")}, device=dev)
+    labels = {k.split("/")[1] for k in arrays if k.startswith("opt/")}
+    opt_state = {
+        label: GroupState(**{
+            k: int(arrays[f"opt/{label}/{k}"])
+            for k in ("count", "mini_step", "gradient_step")})
+        for label in labels
+    }
+
+    def t(key, transposed):
+        a = np.array(arrays[key], np.float32)
+        return torch.as_tensor(a.T if transposed else a, device=dev)
+
+    for name, _ in scene.named_parameters():
+        label = param_label(name)
+        key, transposed = jax_key(name)
+        gs = opt_state[label]
+        for kind in ("mu", "nu", "acc_grads"):
+            k = f"opt/{label}/{kind}/{key}"
+            if k in arrays:
+                getattr(gs, kind)[name] = t(k, transposed)
+            elif kind != "acc_grads":
+                raise KeyError(k)
+    stats = DensityStats(*(
+        torch.as_tensor(np.array(arrays[f"stats/{f}"]), device=dev)
+        for f in DensityStats._fields))
+    return TrainState(scene=scene, opt_state=opt_state,
+                      step=int(arrays["step"]), stats=stats)

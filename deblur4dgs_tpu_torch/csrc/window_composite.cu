@@ -6,7 +6,11 @@
 //               K3 _bwd_kernel_window (rasterize.py:1049)
 // and, launched with S = 1, the split compositor K4 (_fwd_kernel_split
 // :548, _bwd_kernel_split :608), which is K1/K2 with one sub-frame in the
-// same layout (ops/rasterize.py::split_fwd_cuda / split_bwd_cuda).
+// same layout (ops/rasterize.py::split_fwd_cuda / split_bwd_cuda);
+// and, launched with a row map, the scatter-output compositor K6
+// (_fwd_kernel_window_scatter :1561 and the backward of
+// _composite_bwd_window_scatter :1643), which is K1/K2 with the outputs
+// addressed at image-tile row rows[t] of one shared buffer.
 // The plain PyTorch twins composite_window_plain / composite_window_bwd_plain
 // (deblur4dgs_tpu_torch/ops/rasterize.py) compute the same numbers with the
 // same loop semantics; chip_smoke.py holds each kernel against its twin.
@@ -18,7 +22,22 @@
 //   accum (T, S, nchan, P), tfin (T, S, P)  with P = 256 pixels of a 16x16
 //                          tile, nchan = n_static + depth_in_dyn
 //   gdyn  like dyn: [g_mx, g_my, g_a, g_b, g_c, 0 (, g_depth)]
-//   gst   like st: [g_op, g_chans], summed over the S sub-frames
+//   gst   (T, S, Fs, cap) per (row, sub-frame): [g_op, g_chans]; the
+//         wrapper sums it over S into the (T, Fs, cap) gradient of st
+//   rows  (T,) int32 or nullptr: the row of accum / tfin (and of gacc / gt
+//         in the backward) that bucket row t owns; nullptr means row t.
+//
+// Scatter output (K6, rows != nullptr). The buckets of a window partition
+// the image tiles, so each image row of the shared (T_img + 1, ...) buffer
+// is written by exactly one block per sub-frame. Bucket pad rows all map to
+// the trash row T_img and have count 0: their forward blocks all write the
+// same values there (accum 0, T 1), and the wrapper fills that row with
+// those values before the first bucket, so the buffer holds no undefined
+// row. The backward returns from a count-0 row before it reads any
+// residual or cotangent (it only zeroes its gdyn block), so nothing of the
+// trash row enters a gradient. gdyn and gst stay bucket-ordered. Pixel
+// centres come from tile_ids, which the K6 entries set to the row map, as
+// the reference passes sids as the kernel's tile ids.
 //
 // Design. One thread block per (bucket row t, sub-frame s), one thread per
 // pixel (256 threads). The row's Gaussians are walked front to back in chunks
@@ -43,10 +62,10 @@
 // 6 + nchan per-Gaussian gradients are summed over the 256 pixels by a warp
 // shuffle reduction (skipped when no lane of the warp is live) into a
 // per-warp shared-memory partial, then across the 8 warps after the chunk.
-// Each block owns gdyn[t, s] and writes all of it (zeros past its stop
-// chunk); gst[t] is shared by the S blocks of row t and accumulated with
-// atomicAdd into a buffer the wrapper zeroes, so its summation order across
-// sub-frames is unordered (tolerance: float32 reassociation of S terms).
+// Each block owns gdyn[t, s] and gst[t, s] and writes all of both (zeros
+// past its stop chunk); the wrapper sums gst over the S sub-frames in a
+// fixed order, so the backward is deterministic (no atomics: a resumed
+// run repeats an uninterrupted one bit for bit).
 //
 // What bounds it on an H100. At the bench shape (1280x720, S=11, 4 buckets
 // of 1.16M slots) a step's forward moves 0.69 GB and the backward 1.59 GB
@@ -78,6 +97,7 @@ template <int MAXC>
 __global__ void __launch_bounds__(P)
 window_fwd_kernel(const int* __restrict__ tile_ids,
                   const int* __restrict__ counts,
+                  const int* __restrict__ rows,
                   const float* __restrict__ dyn, const float* __restrict__ st,
                   float* __restrict__ accum, float* __restrict__ tfin, int S,
                   int Fd, int Fs, int cap, int nchan, int depth_in_dyn,
@@ -91,6 +111,7 @@ window_fwd_kernel(const int* __restrict__ tile_ids,
   pixel_centre(tile, tiles_x, p, &px, &py);
   const int n_static = nchan - depth_in_dyn;
   const size_t row = (size_t)t * S + s;
+  const size_t orow = (size_t)(rows ? rows[t] : t) * S + s;  // output row
   const float* d_row = dyn + row * Fd * cap;
   const float* s_row = st + (size_t)t * Fs * cap;
 
@@ -126,17 +147,18 @@ window_fwd_kernel(const int* __restrict__ tile_ids,
       T = __fmul_rn(T, __fsub_rn(1.0f, a.alpha));
     }
   }
-  float* a_out = accum + row * nchan * P;
+  float* a_out = accum + orow * nchan * P;
 #pragma unroll
   for (int c = 0; c < MAXC; ++c)
     if (c < nchan) a_out[c * P + p] = acc[c];
-  tfin[row * P + p] = T;
+  tfin[orow * P + p] = T;
 }
 
 template <int MAXC>
 __global__ void __launch_bounds__(P)
 window_bwd_kernel(const int* __restrict__ tile_ids,
                   const int* __restrict__ counts,
+                  const int* __restrict__ rows,
                   const float* __restrict__ dyn, const float* __restrict__ st,
                   const float* __restrict__ accum,
                   const float* __restrict__ tfin,
@@ -160,7 +182,13 @@ window_bwd_kernel(const int* __restrict__ tile_ids,
   const float* d_row = dyn + row * Fd * cap;
   const float* s_row = st + (size_t)t * Fs * cap;
   float* gd_row = gdyn + row * Fd * cap;
-  float* gs_row = gst + (size_t)t * Fs * cap;
+  float* gs_row = gst + row * Fs * cap;
+  if (count == 0) {  // an empty row: zero gradients, residuals never read
+    for (int i = p; i < Fd * cap; i += P) gd_row[i] = 0.0f;
+    for (int i = p; i < Fs * cap; i += P) gs_row[i] = 0.0f;
+    return;
+  }
+  const size_t orow = (size_t)(rows ? rows[t] : t) * S + s;  // residual row
 
   float ga[MAXC];
   float total = 0.0f;
@@ -168,11 +196,11 @@ window_bwd_kernel(const int* __restrict__ tile_ids,
   for (int c = 0; c < MAXC; ++c) {
     ga[c] = 0.0f;
     if (c < nchan) {
-      ga[c] = gacc[(row * nchan + c) * P + p];
-      total += accum[(row * nchan + c) * P + p] * ga[c];
+      ga[c] = gacc[(orow * nchan + c) * P + p];
+      total += accum[(orow * nchan + c) * P + p] * ga[c];
     }
   }
-  const float gt_term = gt[row * P + p] * tfin[row * P + p];
+  const float gt_term = gt[orow * P + p] * tfin[orow * P + p];
 
   float T = 1.0f, prefix = 0.0f;
   const int nchunks = (count + CHUNK - 1) / CHUNK;
@@ -245,9 +273,9 @@ window_bwd_kernel(const int* __restrict__ tile_ids,
       if (k < 5) {
         gd_row[(size_t)k * cap + slot] = sum;
       } else if (k == 5) {
-        if (sum != 0.0f) atomicAdd(&gs_row[slot], sum);
+        gs_row[slot] = sum;
       } else if (k - 6 < n_static) {
-        if (sum != 0.0f) atomicAdd(&gs_row[(size_t)(k - 5) * cap + slot], sum);
+        gs_row[(size_t)(k - 5) * cap + slot] = sum;
       } else {
         gd_row[(size_t)6 * cap + slot] = sum;  // depth channel -> dyn row 6
       }
@@ -257,6 +285,8 @@ window_bwd_kernel(const int* __restrict__ tile_ids,
   // slots this (row, s) never reached get zero gradients
   for (int f = 0; f < Fd; ++f)
     for (int i = ci * CHUNK + p; i < cap; i += P) gd_row[(size_t)f * cap + i] = 0.0f;
+  for (int f = 0; f < Fs; ++f)
+    for (int i = ci * CHUNK + p; i < cap; i += P) gs_row[(size_t)f * cap + i] = 0.0f;
 }
 
 template <int MAXC>
@@ -267,20 +297,22 @@ size_t bwd_smem_bytes(int nchan) {
 }
 
 template <int MAXC>
-int launch_fwd(const void* tile_ids, const void* counts, const void* dyn,
-               const void* st, void* accum, void* tfin, int T, int S, int Fd,
-               int Fs, int cap, int nchan, int depth_in_dyn, int tiles_x,
-               cudaStream_t stream) {
+int launch_fwd(const void* tile_ids, const void* counts, const void* rows,
+               const void* dyn, const void* st, void* accum, void* tfin,
+               int T, int S, int Fd, int Fs, int cap, int nchan,
+               int depth_in_dyn, int tiles_x, cudaStream_t stream) {
   window_fwd_kernel<MAXC><<<dim3(S, T), P, 0, stream>>>(
-      (const int*)tile_ids, (const int*)counts, (const float*)dyn,
+      (const int*)tile_ids, (const int*)counts, (const int*)rows,
+      (const float*)dyn,
       (const float*)st, (float*)accum, (float*)tfin, S, Fd, Fs, cap, nchan,
       depth_in_dyn, tiles_x);
   return (int)cudaGetLastError();
 }
 
 template <int MAXC>
-int launch_bwd(const void* tile_ids, const void* counts, const void* dyn,
-               const void* st, const void* accum, const void* tfin,
+int launch_bwd(const void* tile_ids, const void* counts, const void* rows,
+               const void* dyn, const void* st, const void* accum,
+               const void* tfin,
                const void* gacc, const void* gt, void* gdyn, void* gst, int T,
                int S, int Fd, int Fs, int cap, int nchan, int depth_in_dyn,
                int tiles_x, cudaStream_t stream) {
@@ -290,7 +322,8 @@ int launch_bwd(const void* tile_ids, const void* counts, const void* dyn,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   window_bwd_kernel<MAXC><<<dim3(S, T), P, smem, stream>>>(
-      (const int*)tile_ids, (const int*)counts, (const float*)dyn,
+      (const int*)tile_ids, (const int*)counts, (const int*)rows,
+      (const float*)dyn,
       (const float*)st, (const float*)accum, (const float*)tfin,
       (const float*)gacc, (const float*)gt, (float*)gdyn, (float*)gst, S, Fd,
       Fs, cap, nchan, depth_in_dyn, tiles_x);
@@ -304,6 +337,48 @@ bool shape_ok(int T, int S, int Fd, int Fs, int cap, int nchan,
          nchan >= 1;
 }
 
+int dispatch_fwd(const void* tile_ids, const void* counts, const void* rows,
+                 const void* dyn, const void* st, void* accum, void* tfin,
+                 int T, int S, int Fd, int Fs, int cap, int nchan,
+                 int depth_in_dyn, int tiles_x, void* stream) {
+  if (!shape_ok(T, S, Fd, Fs, cap, nchan, depth_in_dyn))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st_ = (cudaStream_t)stream;
+  if (nchan <= 8)
+    return launch_fwd<8>(tile_ids, counts, rows, dyn, st, accum, tfin, T, S,
+                         Fd, Fs, cap, nchan, depth_in_dyn, tiles_x, st_);
+  if (nchan <= 16)
+    return launch_fwd<16>(tile_ids, counts, rows, dyn, st, accum, tfin, T, S,
+                          Fd, Fs, cap, nchan, depth_in_dyn, tiles_x, st_);
+  if (nchan <= 32)
+    return launch_fwd<32>(tile_ids, counts, rows, dyn, st, accum, tfin, T, S,
+                          Fd, Fs, cap, nchan, depth_in_dyn, tiles_x, st_);
+  return (int)cudaErrorInvalidValue;
+}
+
+int dispatch_bwd(const void* tile_ids, const void* counts, const void* rows,
+                 const void* dyn, const void* st, const void* accum,
+                 const void* tfin, const void* gacc, const void* gt,
+                 void* gdyn, void* gst, int T, int S, int Fd, int Fs, int cap,
+                 int nchan, int depth_in_dyn, int tiles_x, void* stream) {
+  if (!shape_ok(T, S, Fd, Fs, cap, nchan, depth_in_dyn))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st_ = (cudaStream_t)stream;
+  if (nchan <= 8)
+    return launch_bwd<8>(tile_ids, counts, rows, dyn, st, accum, tfin, gacc,
+                         gt, gdyn, gst, T, S, Fd, Fs, cap, nchan,
+                         depth_in_dyn, tiles_x, st_);
+  if (nchan <= 16)
+    return launch_bwd<16>(tile_ids, counts, rows, dyn, st, accum, tfin, gacc,
+                          gt, gdyn, gst, T, S, Fd, Fs, cap, nchan,
+                          depth_in_dyn, tiles_x, st_);
+  if (nchan <= 32)
+    return launch_bwd<32>(tile_ids, counts, rows, dyn, st, accum, tfin, gacc,
+                          gt, gdyn, gst, T, S, Fd, Fs, cap, nchan,
+                          depth_in_dyn, tiles_x, st_);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // C interface (bound with ctypes by ops/cuda_build.py). Each returns the
@@ -313,19 +388,8 @@ extern "C" int d4gs_window_fwd(const void* tile_ids, const void* counts,
                                void* tfin, int T, int S, int Fd, int Fs,
                                int cap, int nchan, int depth_in_dyn,
                                int tiles_x, void* stream) {
-  if (!shape_ok(T, S, Fd, Fs, cap, nchan, depth_in_dyn))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st_ = (cudaStream_t)stream;
-  if (nchan <= 8)
-    return launch_fwd<8>(tile_ids, counts, dyn, st, accum, tfin, T, S, Fd, Fs,
-                         cap, nchan, depth_in_dyn, tiles_x, st_);
-  if (nchan <= 16)
-    return launch_fwd<16>(tile_ids, counts, dyn, st, accum, tfin, T, S, Fd,
-                          Fs, cap, nchan, depth_in_dyn, tiles_x, st_);
-  if (nchan <= 32)
-    return launch_fwd<32>(tile_ids, counts, dyn, st, accum, tfin, T, S, Fd,
-                          Fs, cap, nchan, depth_in_dyn, tiles_x, st_);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_fwd(tile_ids, counts, nullptr, dyn, st, accum, tfin, T, S,
+                      Fd, Fs, cap, nchan, depth_in_dyn, tiles_x, stream);
 }
 
 extern "C" int d4gs_window_bwd(const void* tile_ids, const void* counts,
@@ -335,22 +399,34 @@ extern "C" int d4gs_window_bwd(const void* tile_ids, const void* counts,
                                void* gst, int T, int S, int Fd, int Fs,
                                int cap, int nchan, int depth_in_dyn,
                                int tiles_x, void* stream) {
-  if (!shape_ok(T, S, Fd, Fs, cap, nchan, depth_in_dyn))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st_ = (cudaStream_t)stream;
-  if (nchan <= 8)
-    return launch_bwd<8>(tile_ids, counts, dyn, st, accum, tfin, gacc, gt,
-                         gdyn, gst, T, S, Fd, Fs, cap, nchan, depth_in_dyn,
-                         tiles_x, st_);
-  if (nchan <= 16)
-    return launch_bwd<16>(tile_ids, counts, dyn, st, accum, tfin, gacc, gt,
-                          gdyn, gst, T, S, Fd, Fs, cap, nchan, depth_in_dyn,
-                          tiles_x, st_);
-  if (nchan <= 32)
-    return launch_bwd<32>(tile_ids, counts, dyn, st, accum, tfin, gacc, gt,
-                          gdyn, gst, T, S, Fd, Fs, cap, nchan, depth_in_dyn,
-                          tiles_x, st_);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_bwd(tile_ids, counts, nullptr, dyn, st, accum, tfin, gacc,
+                      gt, gdyn, gst, T, S, Fd, Fs, cap, nchan, depth_in_dyn,
+                      tiles_x, stream);
+}
+
+// K6: sids (T,) are both the tile ids (pixel centres) and the row map into
+// the shared (T_img + 1, S, ...) accum / tfin (and gacc / gt) buffers.
+extern "C" int d4gs_window_scatter_fwd(const void* sids, const void* counts,
+                                       const void* dyn, const void* st,
+                                       void* accum, void* tfin, int T, int S,
+                                       int Fd, int Fs, int cap, int nchan,
+                                       int depth_in_dyn, int tiles_x,
+                                       void* stream) {
+  return dispatch_fwd(sids, counts, sids, dyn, st, accum, tfin, T, S, Fd, Fs,
+                      cap, nchan, depth_in_dyn, tiles_x, stream);
+}
+
+extern "C" int d4gs_window_scatter_bwd(const void* sids, const void* counts,
+                                       const void* dyn, const void* st,
+                                       const void* accum, const void* tfin,
+                                       const void* gacc, const void* gt,
+                                       void* gdyn, void* gst, int T, int S,
+                                       int Fd, int Fs, int cap, int nchan,
+                                       int depth_in_dyn, int tiles_x,
+                                       void* stream) {
+  return dispatch_bwd(sids, counts, sids, dyn, st, accum, tfin, gacc, gt,
+                      gdyn, gst, T, S, Fd, Fs, cap, nchan, depth_in_dyn,
+                      tiles_x, stream);
 }
 
 extern "C" const char* d4gs_error_string(int err) {

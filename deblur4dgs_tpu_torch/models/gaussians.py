@@ -34,6 +34,10 @@ class Gaussians(nn.Module):
     def capacity(self) -> int:
         return self.means.shape[0]
 
+    def num_alive(self) -> torch.Tensor:
+        """Number of live slots (an int tensor on the parameters' device)."""
+        return self.get_alive().sum()
+
     def get_alive(self) -> torch.Tensor:
         """Bool aliveness mask."""
         if self.alive is None:
@@ -60,3 +64,38 @@ class Gaussians(nn.Module):
     def get_coefs(self) -> torch.Tensor:
         assert self.motion_coefs is not None
         return torch.softmax(self.motion_coefs, dim=-1)
+
+
+def pad_to_capacity(g: Gaussians, capacity: int) -> Gaussians:
+    """A new Gaussians grown to ``capacity`` slots; the new slots are dead,
+    zero-filled, with quats (1, 0, 0, 0) so they stay normalizable."""
+    n = g.capacity
+    if capacity < n:
+        raise ValueError(f"capacity {capacity} below the {n} slots held")
+    extra = capacity - n
+
+    def pad(x):
+        if x is None:
+            return None
+        x = x.detach()
+        return torch.cat([x, x.new_zeros((extra,) + tuple(x.shape[1:]))])
+
+    quats = pad(g.quats)
+    quats[n:, 0] = 1.0
+    alive = g.get_alive().to(torch.float32)
+    return Gaussians(
+        means=pad(g.means), quats=quats, scales=pad(g.scales),
+        colors=pad(g.colors), opacities=pad(g.opacities),
+        motion_coefs=pad(g.motion_coefs),
+        alive=torch.cat([alive, alive.new_zeros((extra,))]),
+    )
+
+
+def concat_gaussians(fg: Gaussians, bg: Gaussians):
+    """Activated (scales, opacities, colors) of fg then bg, the reference's
+    fg-first order (scene_model.py:122-143)."""
+    return (
+        torch.cat([fg.get_scales(), bg.get_scales()], 0),
+        torch.cat([fg.get_opacities(), bg.get_opacities()], 0),
+        torch.cat([fg.get_colors(), bg.get_colors()], 0),
+    )

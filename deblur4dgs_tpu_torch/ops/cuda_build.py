@@ -116,10 +116,12 @@ def load(verbose_ptxas: bool = False):
         return _lib
     lib = ctypes.CDLL(str(build(verbose_ptxas)))
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.d4gs_window_fwd.argtypes = [vp] * 6 + [i] * 8 + [vp]
-    lib.d4gs_window_fwd.restype = i
-    lib.d4gs_window_bwd.argtypes = [vp] * 10 + [i] * 8 + [vp]
-    lib.d4gs_window_bwd.restype = i
+    for kind in ("window", "window_scatter"):
+        fwd, bwd = (getattr(lib, f"d4gs_{kind}_{d}") for d in ("fwd", "bwd"))
+        fwd.argtypes = [vp] * 6 + [i] * 8 + [vp]
+        fwd.restype = i
+        bwd.argtypes = [vp] * 10 + [i] * 8 + [vp]
+        bwd.restype = i
     lib.d4gs_dense_fwd.argtypes = [vp] * 4 + [i] * 5 + [vp]
     lib.d4gs_dense_fwd.restype = i
     lib.d4gs_dense_bwd.argtypes = [vp] * 7 + [i] * 5 + [vp]

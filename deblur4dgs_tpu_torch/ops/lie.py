@@ -1,7 +1,7 @@
 """Lie-group math: quaternions, SO(3)/SE(3) exp/log, 6D rotations, lerp.
 
-PyTorch port of deblur4dgs_tpu/ops/lie.py (the functions the dynamic train
-step reaches). Batched over arbitrary leading dims, fp32, autograd-safe:
+PyTorch port of deblur4dgs_tpu/ops/lie.py (the functions the train step
+and the scene bootstrap reach). Batched over arbitrary leading dims, fp32, autograd-safe:
 every singular point is guarded with the double-where pattern so gradients
 never see NaN.
 
@@ -192,6 +192,11 @@ def quat_log(q):
 # ---------------------------------------------------------------------------
 
 
+def rmat_to_cont_6d(R):
+    """(..., 3, 3) -> (..., 6): first two *columns* of R concatenated."""
+    return torch.cat([R[..., 0], R[..., 1]], dim=-1)
+
+
 def cont_6d_to_rmat(c):
     """(..., 6) -> (..., 3, 3) via Gram-Schmidt; columns of the result."""
     x1 = c[..., 0:3]
@@ -270,6 +275,21 @@ def se3_log(Rt):
     return torch.cat([w, u], dim=-1)
 
 
+def pose_compose(A, B):
+    """Compose two (..., 3, 4) poses: result = A @ B (as 4x4s)."""
+    Ra, ta = A[..., :3], A[..., 3]
+    Rb, tb = B[..., :3], B[..., 3]
+    R = Ra @ Rb
+    t = (Ra @ tb[..., None])[..., 0] + ta
+    return torch.cat([R, t[..., None]], dim=-1)
+
+
+def pose_inverse(A):
+    R, t = A[..., :3], A[..., 3]
+    Rt = R.transpose(-1, -2)
+    return torch.cat([Rt, -(Rt @ t[..., None])], dim=-1)
+
+
 def pose_apply(A, pts):
     """Apply (..., 3, 4) pose to (..., 3) points."""
     return (A[..., :3] @ pts[..., None])[..., 0] + A[..., 3]
@@ -292,3 +312,42 @@ def se3_lerp(pose0, pose1, u):
     )
     R = quat_to_rmat(q)
     return torch.cat([R, t[..., None]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Weighted Procrustes (transforms.py:56-129)
+# ---------------------------------------------------------------------------
+
+
+def solve_procrustes(src, dst, weights=None, enforce_se3=True):
+    """Weighted similarity / SE(3) alignment min ||s (src @ R^T + t) - dst||.
+
+    src, dst (N, 3); weights (N,) or None. Returns ((q_wxyz, t, s), error):
+    the rotation as a wxyz quaternion and the weighted mean residual."""
+    n = src.shape[0]
+    if weights is None:
+        weights = src.new_ones((n,))
+    w = (weights / torch.clamp(weights.sum(), min=_EPS))[:, None]
+    src_mean = (src * w).sum(dim=0)
+    dst_mean = (dst * w).sum(dim=0)
+    src_c = src - src_mean
+    dst_c = dst - dst_mean
+    if enforce_se3:
+        src_scale = dst_scale = src.new_tensor(1.0)
+    else:
+        src_scale = torch.sqrt(torch.mean(torch.sum(src_c**2 * w, dim=-1)))
+        dst_scale = torch.sqrt(torch.mean(torch.sum(dst_c**2 * w, dim=-1)))
+    src_s = src_c / src_scale
+    dst_s = dst_c / dst_scale
+    M = (w * dst_s).T @ src_s
+    U, _, Vh = torch.linalg.svd(M)
+    det = torch.linalg.det(U) * torch.linalg.det(Vh)
+    S = torch.diag(src.new_tensor([1.0, 1.0, 0.0])) + torch.diag(
+        src.new_tensor([0.0, 0.0, 1.0])) * torch.sign(det)
+    R = U @ S @ Vh
+    s = dst_scale / src_scale
+    t = dst_mean / s - src_mean @ R.T
+    q = rmat_to_quat(R)
+    aligned = s * (src @ R.T + t)
+    error = torch.sum(torch.linalg.norm(dst - aligned, dim=-1) * w[:, 0])
+    return (q, t, s), error

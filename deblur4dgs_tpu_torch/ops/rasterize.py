@@ -13,9 +13,12 @@ The backward recomputes alpha and T in forward order and takes suffix
 sums as Total - prefix from the forward outputs (accum, tfin): no
 per-Gaussian residuals are stored and nothing is divided by a small T.
 
-Three compositors share that math and one stop rule:
+Four compositors share that math and one stop rule:
   * window (K1, K2/K3): dyn (T, S, Fd, cap) + static (T, 1+Dc, cap) for
     all S exposure sub-frames of a bucket row, channel-major outputs;
+  * window scatter (K6, behind D4_SCATTER=1): the window kernels with the
+    outputs of bucket row t at image-tile row sids[t] of one shared
+    (T_img + 1, ...) buffer for all buckets (row T_img takes the pad rows);
   * split (K4): one sub-frame of the same layout, (T, Fd, cap); it runs
     the window kernels at S = 1 (K4 is K1/K2 with one sub-frame);
   * dense (K5): one payload (T, 7+D, cap) per image-tile row, rows
@@ -39,6 +42,7 @@ window twin on views of their inputs (the same per-pair math).
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -60,12 +64,16 @@ EARLY_STOP_T = 1e-4
 CHUNK = 128  # Gaussians per chunk (the stop rule's granularity)
 P = TILE * TILE  # pixels per tile
 MAX_DENSE_CHANNELS = 16  # the dense kernels' register accumulators
+# Scatter-output window path (K6), read at import as the reference does
+# (deblur4dgs_tpu/ops/rasterize.py:52); tests monkeypatch it.
+_USE_SCATTER = os.environ.get("D4_SCATTER", "0") != "0"
 
 # Launch counts of the CUDA kernels, incremented only where a kernel is
 # launched (CPU twins and kernel-vs-twin checks through the twins never
 # count). chip_smoke.py zeroes them before driving a path.
-LAUNCHES = {"window_fwd": 0, "window_bwd": 0, "split_fwd": 0,
-            "split_bwd": 0, "dense_fwd": 0, "dense_bwd": 0}
+LAUNCHES = {"window_fwd": 0, "window_bwd": 0, "window_scatter_fwd": 0,
+            "window_scatter_bwd": 0, "split_fwd": 0, "split_bwd": 0,
+            "dense_fwd": 0, "dense_bwd": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -234,6 +242,34 @@ def composite_window_bwd_plain(dyn, st, counts, tile_ids, accum, tfin, gacc,
     return gdyn, gst
 
 
+def composite_window_scatter_plain(dyn, st, counts, sids, accum, tfin,
+                                   tiles_x, nchan, depth_in_dyn,
+                                   return_work=False):
+    """Plain twin of the scatter forward (K6): the window twin on the
+    bucket with tile ids ``sids``, its rows written in place at rows
+    ``sids`` of the shared accum (T_img+1, S, nchan, P) / tfin
+    (T_img+1, S, P). Returns (accum, tfin) (+ work, see the window twin)."""
+    out = composite_window_plain(dyn, st, counts, sids, tiles_x, nchan,
+                                 depth_in_dyn, return_work)
+    rows = sids.long()
+    accum[rows] = out[0]
+    tfin[rows] = out[1]
+    return (accum, tfin) + tuple(out[2:])
+
+
+def composite_window_scatter_bwd_plain(dyn, st, counts, sids, accum, tfin,
+                                       gacc, gt, tiles_x, nchan,
+                                       depth_in_dyn):
+    """Plain twin of the scatter backward (K6): gather the bucket's rows of
+    the shared residual and cotangent buffers and run the window twin, as
+    the reference's interpret path does (rasterize.py:1652-1659)."""
+    rows = sids.long()
+    return composite_window_bwd_plain(
+        dyn, st, counts, sids, accum[rows], tfin[rows], gacc[rows], gt[rows],
+        tiles_x, nchan, depth_in_dyn,
+    )
+
+
 def composite_split_plain(dyn, st, counts, tile_ids, tiles_x, nchan,
                           depth_in_dyn, return_work=False):
     """Plain twin of the split forward (K4): the window twin at S = 1.
@@ -353,37 +389,61 @@ def _check_window_inputs(dyn, st, counts, tile_ids, nchan, depth_in_dyn):
 
 
 def _window_fwd(dyn, st, counts, tile_ids, tiles_x, nchan, depth_in_dyn,
-                key):
+                key, out=None):
+    """Launch the window forward; ``out`` = the shared (accum, tfin) of the
+    scatter path (K6: tile_ids are the rows to write) or None for fresh
+    bucket-ordered outputs."""
     _require_cuda(dyn)
     T, S, Fd, Fs, cap = _check_window_inputs(
         dyn, st, counts, tile_ids, nchan, depth_in_dyn
     )
-    accum = dyn.new_empty((T, S, nchan, P))
-    tfin = dyn.new_empty((T, S, P))
-    _launch(dyn.device, "window_fwd", tile_ids, counts, dyn, st, accum, tfin,
-            T, S, Fd, Fs, cap, nchan, int(bool(depth_in_dyn)), tiles_x)
+    if out is None:
+        accum = dyn.new_empty((T, S, nchan, P))
+        tfin = dyn.new_empty((T, S, P))
+    else:
+        accum, tfin = out
+        _check_scatter_buffers(accum, tfin, S, nchan, dyn.device, "")
+    _launch(dyn.device, "window_fwd" if out is None else "window_scatter_fwd",
+            tile_ids, counts, dyn, st, accum, tfin, T, S, Fd, Fs, cap, nchan,
+            int(bool(depth_in_dyn)), tiles_x)
     LAUNCHES[key] += 1
     return accum, tfin
 
 
 def _window_bwd(dyn, st, counts, tile_ids, accum, tfin, gacc, gt, tiles_x,
-                nchan, depth_in_dyn, key):
+                nchan, depth_in_dyn, key, scatter=False):
+    """Launch the window backward; ``scatter``: accum / tfin / gacc / gt
+    are the shared (T_img + 1, ...) buffers of K6, read at rows
+    tile_ids[t]. The kernel writes gst per (row, sub-frame); it is summed
+    over S here in a fixed order (deterministic: no atomics)."""
     _require_cuda(dyn)
     T, S, Fd, Fs, cap = _check_window_inputs(
         dyn, st, counts, tile_ids, nchan, depth_in_dyn
     )
     dev = dyn.device
-    _check(accum, "accum", torch.float32, (T, S, nchan, P), dev)
-    _check(tfin, "tfin", torch.float32, (T, S, P), dev)
-    _check(gacc, "gacc", torch.float32, (T, S, nchan, P), dev)
-    _check(gt, "gt", torch.float32, (T, S, P), dev)
+    if scatter:
+        _check_scatter_buffers(accum, tfin, S, nchan, dev, "")
+        _check_scatter_buffers(gacc, gt, S, nchan, dev, "cotangent of ")
+    else:
+        _check(accum, "accum", torch.float32, (T, S, nchan, P), dev)
+        _check(tfin, "tfin", torch.float32, (T, S, P), dev)
+        _check(gacc, "gacc", torch.float32, (T, S, nchan, P), dev)
+        _check(gt, "gt", torch.float32, (T, S, P), dev)
     gdyn = torch.empty_like(dyn)
-    gst = torch.zeros_like(st)  # atomicAdd target
-    _launch(dev, "window_bwd", tile_ids, counts, dyn, st, accum, tfin, gacc,
-            gt, gdyn, gst, T, S, Fd, Fs, cap, nchan,
-            int(bool(depth_in_dyn)), tiles_x)
+    gst_s = dyn.new_empty((T, S, Fs, cap))  # per sub-frame, written whole
+    _launch(dev, "window_scatter_bwd" if scatter else "window_bwd", tile_ids,
+            counts, dyn, st, accum, tfin, gacc, gt, gdyn, gst_s, T, S, Fd, Fs,
+            cap, nchan, int(bool(depth_in_dyn)), tiles_x)
     LAUNCHES[key] += 1
-    return gdyn, gst
+    return gdyn, gst_s.sum(1)
+
+
+def _check_scatter_buffers(accum, tfin, S, nchan, dev, label):
+    T_img = accum.shape[0] - 1
+    _check(accum, f"{label}accum", torch.float32, (T_img + 1, S, nchan, P),
+           dev)
+    _check(tfin, f"{label}tfin", torch.float32, (T_img + 1, S, P), dev)
+    return T_img
 
 
 def window_fwd_cuda(dyn, st, counts, tile_ids, tiles_x, nchan, depth_in_dyn):
@@ -396,10 +456,30 @@ def window_fwd_cuda(dyn, st, counts, tile_ids, tiles_x, nchan, depth_in_dyn):
 def window_bwd_cuda(dyn, st, counts, tile_ids, accum, tfin, gacc, gt,
                     tiles_x, nchan, depth_in_dyn):
     """Launch the window backward kernel (replaces the TPU kernels K2,
-    _bwd_kernel_window_sgrid, and K3, _bwd_kernel_window). gst is summed
-    over S with atomicAdd into a zeroed buffer."""
+    _bwd_kernel_window_sgrid, and K3, _bwd_kernel_window)."""
     return _window_bwd(dyn, st, counts, tile_ids, accum, tfin, gacc, gt,
                        tiles_x, nchan, depth_in_dyn, "window_bwd")
+
+
+def window_scatter_fwd_cuda(dyn, st, counts, sids, accum, tfin, tiles_x,
+                            nchan, depth_in_dyn):
+    """Launch the scatter forward (replaces the TPU kernel K6,
+    deblur4dgs_tpu/ops/rasterize.py::_fwd_kernel_window_scatter): the window
+    forward kernel with bucket row t written at row sids[t] of the shared
+    accum (T_img+1, S, nchan, P) / tfin (T_img+1, S, P), in place. Pad rows
+    carry sid T_img (the trash row) and count 0. Returns (accum, tfin)."""
+    return _window_fwd(dyn, st, counts, sids, tiles_x, nchan, depth_in_dyn,
+                       "window_scatter_fwd", out=(accum, tfin))
+
+
+def window_scatter_bwd_cuda(dyn, st, counts, sids, accum, tfin, gacc, gt,
+                            tiles_x, nchan, depth_in_dyn):
+    """Launch the scatter backward (K6's backward, the window backward
+    kernel reading accum / tfin / gacc / gt at rows sids[t] of the shared
+    buffers): bucket-ordered gdyn (T, S, Fd, cap), gst (T, 1+Dc, cap)."""
+    return _window_bwd(dyn, st, counts, sids, accum, tfin, gacc, gt, tiles_x,
+                       nchan, depth_in_dyn, "window_scatter_bwd",
+                       scatter=True)
 
 
 def split_fwd_cuda(dyn, st, counts, tile_ids, tiles_x, nchan, depth_in_dyn):
@@ -477,6 +557,10 @@ def dense_bwd_cuda(tile_data, counts, accum, tfin, gacc, gt, tiles_x, nchan):
 _COMPOSITORS = {
     "window": (window_fwd_cuda, composite_window_plain, window_bwd_cuda,
                composite_window_bwd_plain),
+    # forward: (dyn, st, counts, sids, accum, tfin, ...) writes in place
+    "window_scatter": (window_scatter_fwd_cuda, composite_window_scatter_plain,
+                       window_scatter_bwd_cuda,
+                       composite_window_scatter_bwd_plain),
     "split": (split_fwd_cuda, composite_split_plain, split_bwd_cuda,
               composite_split_bwd_plain),
     "dense": (dense_fwd_cuda, composite_dense_plain, dense_bwd_cuda,
@@ -526,6 +610,66 @@ def composite_tiles_window(dyn, st, counts, tile_ids, tiles_x, nchan,
     """
     return _Composite.apply("window", 2, dyn, st, counts, tile_ids, tiles_x,
                             nchan, bool(depth_in_dyn))
+
+
+class _CompositeScatter(torch.autograd.Function):
+    """All buckets of a window into one image-tile-ordered output (K6).
+
+    ``tensors`` are the nb buckets' dyn, then st, counts and sids. The
+    forward allocates accum (T_img+1, S, nchan, P) and tfin
+    (T_img+1, S, P), fills the trash row T_img with what a count-0 row
+    composites (0 and 1), and launches every bucket into them; the
+    backward runs every bucket against the shared residual and cotangent
+    buffers. Kernels on CUDA tensors, twins on CPU ones."""
+
+    @staticmethod
+    def forward(ctx, nb, T_img, tiles_x, nchan, depth_in_dyn, *tensors):
+        dyns, sts, counts, sids = (tensors[i * nb : (i + 1) * nb]
+                                   for i in range(4))
+        fwd_cuda, fwd_plain, _, _ = _COMPOSITORS["window_scatter"]
+        S = dyns[0].shape[1]
+        accum = dyns[0].new_empty((T_img + 1, S, nchan, P))
+        tfin = dyns[0].new_empty((T_img + 1, S, P))
+        accum[T_img] = 0.0
+        tfin[T_img] = 1.0
+        for b in range(nb):
+            fn = fwd_cuda if dyns[b].is_cuda else fwd_plain
+            fn(dyns[b], sts[b], counts[b], sids[b], accum, tfin, tiles_x,
+               nchan, depth_in_dyn)
+        ctx.save_for_backward(*tensors, accum, tfin)
+        ctx.cfg = (nb, tiles_x, nchan, depth_in_dyn)
+        return accum, tfin
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gacc, gt):
+        *ins, accum, tfin = ctx.saved_tensors
+        nb, tiles_x, nchan, depth_in_dyn = ctx.cfg
+        _, _, bwd_cuda, bwd_plain = _COMPOSITORS["window_scatter"]
+        gacc = torch.zeros_like(accum) if gacc is None else gacc.contiguous()
+        gt = torch.zeros_like(tfin) if gt is None else gt.contiguous()
+        gdyns, gsts = [], []
+        for b in range(nb):
+            dyn, st, counts, sids = (ins[i * nb + b] for i in range(4))
+            fn = bwd_cuda if dyn.is_cuda else bwd_plain
+            gdyn, gst = fn(dyn, st, counts, sids, accum, tfin, gacc, gt,
+                           tiles_x, nchan, depth_in_dyn)
+            gdyns.append(gdyn)
+            gsts.append(gst)
+        return (None,) * 5 + tuple(gdyns) + tuple(gsts) + (None,) * (2 * nb)
+
+
+def composite_buckets_scatter(dyn_lists, st_list, counts_list, sids_list,
+                              T_img, tiles_x, nchan, depth_in_dyn):
+    """All buckets' window compositing into ONE image-tile-ordered output
+    (K6; reference rasterize.py:1706-1753). sids_list[b] (Tb,) int32 holds
+    each bucket row's image tile, T_img for pad rows. Returns accum
+    (T_img+1, S, nchan, P), tfin (T_img+1, S, P); callers slice [:T_img]."""
+    nb = len(dyn_lists)
+    return _CompositeScatter.apply(
+        nb, T_img, tiles_x, nchan, bool(depth_in_dyn), *dyn_lists, *st_list,
+        *counts_list, *sids_list,
+    )
 
 
 def composite_tiles_split(dyn, st, counts, tile_ids, tiles_x, nchan,
@@ -645,7 +789,9 @@ def composite_window_buckets(
     exposure reductions (sum over sub-frames; max of the mask channel; min
     of per-sub-frame expected depth) are taken on the (Tb, S, nchan, P)
     outputs in tile space, and one inverse-permutation row gather + untile
-    reassembles the window.
+    reassembles the window. With ``_USE_SCATTER`` (D4_SCATTER=1) the
+    buckets write one image-tile-ordered buffer instead
+    (composite_buckets_scatter, K6): no concat and no gather.
 
     Returns dict: sum_img (H, W, nchan) (background blended), sum_alpha
     (H, W), max_mask (H, W, 1) | None, min_depth (H, W, 1) | None,
@@ -669,34 +815,42 @@ def composite_window_buckets(
     ncs = 4 + (1 if stack_mask else 0)  # per-sub-frame slab channels
     bg = background[None, None, :3, None]
 
-    # Per bucket, one wide channel axis (Tb, C, P):
-    #   [0:nchan] sum over sub-frames of composited channels
-    #   [nchan] sum over sub-frames of transmittance
-    #   [+1 if mask] max over sub-frames of the mask channel
-    #   [+1 if depth] min over sub-frames of expected depth
-    #   [ncs*S'] per-sub-frame (rgb + transmittance (+ mask)) slabs
+    if _USE_SCATTER:
+        # The buckets must partition the image tiles, so that every real
+        # row of the shared buffer is written; pad rows go to trash row T.
+        if sum(buckets.sizes) != T:
+            raise ValueError(f"bucket sizes {buckets.sizes} do not "
+                             f"partition the {T} image tiles")
+        sids = []
+        for ids, n in zip(buckets.tile_ids, buckets.sizes):
+            if ids.shape[0] > n:
+                ids = torch.cat([ids[:n], ids.new_full((ids.shape[0] - n,),
+                                                       T)])
+            sids.append(ids)
+        acc, tf = composite_buckets_scatter(
+            dyn_lists, st_list, buckets.counts, sids, T, tiles_x, nchan,
+            include_depth,
+        )
+        packed = _window_packed_channels(
+            acc[:T], tf[:T], bg, mask_channel, include_depth, s_keep,
+            stack_mask,
+        )
+        return _window_outputs_from_packed(
+            packed, background, img_wh, (tiles_x, tiles_y), nchan,
+            mask_channel, include_depth, s_keep, ncs, S, stack_mask,
+        )
+
     packed_b = []
     for b in range(nb):
         acc, tf = composite_tiles_window(
             dyn_lists[b], st_list[b], buckets.counts[b],
             buckets.tile_ids[b], tiles_x, nchan, include_depth,
         )
-        tf1 = tf[:, :, None, :]  # (Tb, S, 1, P)
-        parts = [acc.sum(1), tf1.sum(1)]
-        if mask_channel is not None:
-            parts.append(acc[:, :, mask_channel : mask_channel + 1].amax(1))
-        if include_depth:
-            d = acc[:, :, -1:, :] / torch.clamp(1.0 - tf1, min=1e-10)
-            parts.append(d.amin(1))
-        acc_k = acc[:, s_keep] if len(s_keep) != S else acc
-        tf1_k = tf1[:, s_keep] if len(s_keep) != S else tf1
-        slab = [acc_k[:, :, :3, :] + tf1_k * bg, tf1_k]
-        if stack_mask:
-            slab.append(acc_k[:, :, mask_channel : mask_channel + 1, :])
-        slab = torch.cat(slab, dim=2)  # (Tb, S', ncs, P)
-        parts.append(slab.reshape(slab.shape[0], len(s_keep) * ncs, P))
         n = buckets.sizes[b]
-        packed_b.append(torch.cat([p[:n] for p in parts], dim=1))
+        packed_b.append(_window_packed_channels(
+            acc[:n], tf[:n], bg, mask_channel, include_depth, s_keep,
+            stack_mask,
+        ))
 
     # Invert the bucket permutation once: every image tile lives in exactly
     # one bucket row (pad rows are excluded by [:n]).
@@ -710,6 +864,33 @@ def composite_window_buckets(
         packed, background, img_wh, (tiles_x, tiles_y), nchan,
         mask_channel, include_depth, s_keep, ncs, S, stack_mask,
     )
+
+
+def _window_packed_channels(acc, tf, bg, mask_channel, include_depth, s_keep,
+                            stack_mask):
+    """acc (R, S, nchan, P), tf (R, S, P) -> one wide channel axis
+    (R, C, P):
+      [0:nchan]     sum over sub-frames of composited channels
+      [nchan]       sum over sub-frames of transmittance
+      [+1 if mask]  max over sub-frames of the mask channel
+      [+1 if depth] min over sub-frames of expected depth
+      [ncs*S']      per-sub-frame (rgb + transmittance (+ mask)) slabs"""
+    S = acc.shape[1]
+    tf1 = tf[:, :, None, :]  # (R, S, 1, P)
+    parts = [acc.sum(1), tf1.sum(1)]
+    if mask_channel is not None:
+        parts.append(acc[:, :, mask_channel : mask_channel + 1].amax(1))
+    if include_depth:
+        d = acc[:, :, -1:, :] / torch.clamp(1.0 - tf1, min=1e-10)
+        parts.append(d.amin(1))
+    acc_k = acc[:, s_keep] if len(s_keep) != S else acc
+    tf1_k = tf1[:, s_keep] if len(s_keep) != S else tf1
+    slab = [acc_k[:, :, :3, :] + tf1_k * bg, tf1_k]
+    if stack_mask:
+        slab.append(acc_k[:, :, mask_channel : mask_channel + 1, :])
+    slab = torch.cat(slab, dim=2)  # (R, S', ncs, P)
+    parts.append(slab.reshape(slab.shape[0], -1, P))
+    return torch.cat(parts, dim=1)
 
 
 def _window_outputs_from_packed(

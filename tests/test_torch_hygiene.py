@@ -1,5 +1,6 @@
-"""Port hygiene: no JAX in the port, no kernel launches on CPU, no silent
-CPU fallback when CUDA is asked for."""
+"""Port hygiene: no JAX in the port (nor anything else the card's machine
+lacks: scikit-learn, orbax, optax, tensorboard), no kernel launches on CPU,
+no silent CPU fallback when CUDA is asked for."""
 
 import ast
 import os
@@ -17,7 +18,8 @@ from tests.test_torch_models import torch_single_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "deblur4dgs_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "flax", "deblur4dgs_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "flax", "deblur4dgs_tpu",
+             "sklearn", "tensorboard", "tensorboardX")
 
 
 def _imports(path):
@@ -32,8 +34,8 @@ def _imports(path):
 
 
 def test_no_forbidden_imports_in_source():
-    files = sorted(PKG.rglob("*.py"))
-    assert len(files) >= 15
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) >= 20
     bad = [
         (f.relative_to(REPO).as_posix(), mod)
         for f in files for mod in _imports(f)
@@ -81,9 +83,17 @@ def test_cpu_calls_leave_launch_counters_at_zero():
     acc, tf = tr.composite_tiles(data, counts, 4, 4)
     (acc.sum() + tf.sum()).backward()
     assert d1.grad is not None and data.grad is not None
+    d2 = dyn.detach().clone().requires_grad_(True)
+    acc, tf = tr.composite_buckets_scatter(
+        [d2[:4], d2[4:]], [st[:4], st[4:]], [counts[:4], counts[4:]],
+        [ids[:4], ids[4:]], T, 4, 5, True)
+    (acc[:T].sum() + tf[:T].sum()).backward()
+    assert d2.grad is not None
     assert tr.LAUNCHES == before
-    assert before == {k: 0 for k in ("window_fwd", "window_bwd", "split_fwd",
-                                     "split_bwd", "dense_fwd", "dense_bwd")}
+    assert before == {k: 0 for k in (
+        "window_fwd", "window_bwd", "window_scatter_fwd",
+        "window_scatter_bwd", "split_fwd", "split_bwd", "dense_fwd",
+        "dense_bwd")}
 
 
 def test_cuda_requested_without_cuda_raises():
@@ -120,6 +130,12 @@ def test_kernel_wrappers_refuse_cpu_or_mixed_inputs():
     with pytest.raises(ValueError, match="CUDA tensors"):
         tr.split_bwd_cuda(dyn[:, 0], st, counts, ids, None, None, None,
                           None, 4, 5, True)
+    shared = torch.zeros((9, 2, 5, 256)), torch.zeros((9, 2, 256))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tr.window_scatter_fwd_cuda(dyn, st, counts, ids, *shared, 4, 5, True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tr.window_scatter_bwd_cuda(dyn, st, counts, ids, *shared, *shared,
+                                   4, 5, True)
     data = torch.zeros((8, 11, 128))
     with pytest.raises(ValueError, match="CUDA tensors"):
         tr.dense_fwd_cuda(data, counts, 4, 4)
@@ -136,3 +152,25 @@ def test_kernel_wrappers_refuse_cpu_or_mixed_inputs():
         tr._check_window_inputs(dyn, st[:, :4], counts, ids, 5, True)
     assert tr._check_window_inputs(dyn, st, counts, ids, 5, True) == \
         (8, 2, 7, 5, 128)
+
+
+def test_scatter_buffer_checks():
+    """The K6 wrappers' shape checks on the shared (T_img + 1, ...)
+    buffers: the right shapes pass, a wrong sub-frame count raises."""
+    acc, tf = torch.zeros((9, 2, 5, 256)), torch.zeros((9, 2, 256))
+    assert tr._check_scatter_buffers(acc, tf, 2, 5, acc.device, "") == 8
+    with pytest.raises(ValueError):
+        tr._check_scatter_buffers(acc, tf, 3, 5, acc.device, "")
+    with pytest.raises(ValueError):
+        tr._check_scatter_buffers(acc, tf[:, :, :128], 2, 5, acc.device, "")
+
+
+def test_train_loop_viewer_raises():
+    """viewer= is refused up front (live rendering is not ported), before
+    anything is built or imported for it."""
+    from deblur4dgs_tpu_torch.train.loop import TrainLoop
+
+    with pytest.raises(NotImplementedError, match="viewer"):
+        TrainLoop(None, None, None, None, None, 8, "unused", "first",
+                  has_static=True, has_dynamic=False, has_reg=False,
+                  viewer=object())
