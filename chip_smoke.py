@@ -6,14 +6,24 @@ Needs one CUDA card (an H100 / sm_90a) and nvcc. It builds the port's CUDA
 kernels from deblur4dgs_tpu_torch/csrc (one nvcc per source, all started
 together), then:
 
-  1. prints the card (nvidia-smi name, power limit), torch / CUDA versions
-     and the kernel build time + ptxas register report;
+  1. prints the card (nvidia-smi name, power limit), torch / CUDA versions,
+     the kernel build time + ptxas register and spill report, and for each
+     window kernel instance (exact at nchan 5 and 11, generic up to 32) its
+     registers, local (spill) bytes, shared memory and most resident blocks
+     per SM (cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerMulti-
+     processor; also in the kernels line under "instances");
   2. holds each kernel against its plain twin on random inputs at capacities
      128, 256, 512 and 1024, with an empty row and rows that saturate in
      their first chunk: the window kernels (K1, K2/K3) at S=11, nchan 11
      (the dynamic window) and nchan 5 (the static windows); the dense
      kernels (K5) at D=4 and D=5 (phase a); the split path (K4, the window
-     kernels at S=1) at nchan 11 and 5 (phase b);
+     kernels at S=1) at nchan 11 and 5 (phase b); then the window kernels
+     on edge_bucket inputs built to break an inexact per-warp cull (means
+     at exactly r from a warp's nearest pixel centre or one ulp beyond,
+     r = 0 and r far beyond the tile, means on warp boundaries, counts
+     that are not multiples of 128, sub-frames stopping at different
+     chunks) at nchan 11 and 5 through K1/K2, K4 and K6, and the generic
+     instance at nchan 3 and 8 (phase_edge);
   3. drives the port's dynamic train step at the full bench.py shape
      (1280x720, 40k fg + 60k bg Gaussians, S=11, tile cap 1024; the scene,
      batch and tracks drawn from numpy default_rng(0) exactly as bench.py
@@ -34,7 +44,9 @@ together), then:
      profile, and one step's recorded inputs: the window kernels on its
      16 calls and K5 on its static-reg call, held against their twins
      (first 64 rows of each call) and timed with them; the kernels line
-     reports these times;
+     reports these times. On the same 16 calls, the share of (warp,
+     Gaussian) iterations the kernels' per-warp cull removes
+     (ops/rasterize.py::warp_reach), printed before the kernels line;
   5. drives the stage-1 step (the static branch alone, stage 'first') at
      the same shape and static batch: one warm-up step, 5 timed steps,
      3 windows x 4 buckets window launches per direction per step, and a
@@ -68,8 +80,11 @@ together), then:
      torch.use_deterministic_algorithms, 2 steps + checkpoint + load + 2
      steps against 4 steps straight, bit for bit.
 
-Bounds count what the run's data needs: the (pixel, Gaussian) pairs up to
-each row's stop chunk, and of each payload only the slots walked.
+Bounds count what the run's data needs: of each payload only the slots
+walked before each row's stop chunk, and alpha only for the (pixel,
+Gaussian) pairs inside alpha_at's box, plus a box test per Gaussian and
+block of 32 pixels (OPS_BOX); each kernel's "bound_ms_every_pair" charges
+alpha to every pair up to the stop chunks instead.
 
 Prints a {"kernels": [...]} JSON line, the step times, the card line, and
 last {"ok": true, "device": {...}}. Any failed check raises (exit != 0).
@@ -97,6 +112,7 @@ W, H = 1280, 720
 NUM_FG, NUM_BG = 40_000, 60_000
 NUM_EXPOSURE = 11
 TILE_CAP = 1024
+TILE = 16  # pixels per tile side (the compositors' tiles are 16x16)
 NUM_FRAMES = 24
 TIMED_STEPS = 5
 EPOCH = 25  # > 20: the pose-net gate and the multires guide are on
@@ -119,6 +135,12 @@ CARD_RATES = {  # name key: (bytes/s, fp32 flop/s)
 # backward (sdot, channel grads, prefix/suffix, alpha/conic/mean/opacity
 # grads, one add per reduced value).
 OPS_PAIR = 20
+# The least work needs alpha only where alpha_at's box test |px - mx| <= r,
+# |py - my| <= r holds: a pair outside it is dead. Finding those pairs takes
+# a box test (two rounded offsets, two compares) per Gaussian and block of
+# 32 pixels; bound_ms counts that and OPS_PAIR per pair inside the box.
+# bound_ms_every_pair counts OPS_PAIR for every pair up to the stop chunks.
+OPS_BOX = 4
 # Per port kernel: the TPU kernel it replaces (line in
 # deblur4dgs_tpu/ops/rasterize.py, function) and its source in the port.
 KERNEL_INFO = {
@@ -224,14 +246,15 @@ def zero_launches(tr):
 # ---------------------------------------------------------------------------
 
 
-def random_bucket(seed, T, S, nchan, cap, tiles_x, n_tiles, dev):
+def random_bucket(seed, T, S, nchan, cap, tiles_x, n_tiles, dev, depth=True):
     """Random window-compositor inputs in the packing layout (slots past a
     row's count are zero sentinel rows). Row 0 is empty; rows 1-8 hold wide
-    opaque Gaussians and saturate in their first chunk."""
+    opaque Gaussians and saturate in their first chunk. ``depth``: the last
+    channel is dyn's depth row (else all nchan channels are static)."""
     rng = np.random.default_rng(seed)
     ids = rng.permutation(n_tiles)[:T].astype(np.int32)
-    n_static = nchan - 1
-    dyn = np.zeros((T, S, 7, cap), np.float32)
+    n_static = nchan - int(depth)
+    dyn = np.zeros((T, S, 6 + int(depth), cap), np.float32)
     tx = (ids % tiles_x) * 16.0
     ty = (ids // tiles_x) * 16.0
     bx = tx[:, None] + rng.uniform(-4, 20, (T, cap))
@@ -243,7 +266,8 @@ def random_bucket(seed, T, S, nchan, cap, tiles_x, n_tiles, dev):
         dyn[:, s, 3] = rng.uniform(-0.01, 0.01, (T, cap))
         dyn[:, s, 4] = rng.uniform(0.02, 0.5, (T, cap))
         dyn[:, s, 5] = rng.uniform(3, 30, (T, cap)).round()
-        dyn[:, s, 6] = rng.uniform(1.0, 9.0, (T, cap))
+        if depth:
+            dyn[:, s, 6] = rng.uniform(1.0, 9.0, (T, cap))
     st = np.concatenate(
         [rng.uniform(0.05, 0.9, (T, 1, cap)),
          rng.normal(size=(T, n_static, cap))], 1).astype(np.float32)
@@ -257,6 +281,73 @@ def random_bucket(seed, T, S, nchan, cap, tiles_x, n_tiles, dev):
     st *= live[:, None]
     t = lambda x: torch.as_tensor(x, device=dev)
     return t(dyn), t(st), t(counts), t(ids)
+
+
+EDGE_COUNTS = (1, 31, 33, 127, 129, 200, 255, 257, 383, 511, 1000, 1024)
+
+
+def edge_bucket(seed, T, S, nchan, cap, tiles_x, n_tiles, dev):
+    """Window inputs built to break an inexact per-warp cull (the kernels'
+    warp_reaches): flat Gaussians (alpha = opacity wherever the box test
+    holds) whose means sit so that |px - mx| or |py - my| equals r exactly
+    at a warp's nearest pixel centre, or one ulp beyond; r = 0 on and off a
+    pixel centre; r far beyond the tile; means on warp boundaries (x = 8,
+    y = 4k inside the tile); counts that are not multiples of 128 (row 0
+    empty). In the odd rows sub-frame s saturates in chunk s % nchunks, so
+    the sub-frames stop at different chunks. Last channel = dyn's depth."""
+    rng = np.random.default_rng(seed)
+    ids = rng.permutation(n_tiles)[:T].astype(np.int32)
+    tx = ((ids % tiles_x) * 16).astype(np.float32)[:, None]
+    ty = ((ids // tiles_x) * 16).astype(np.float32)[:, None]
+    f32 = np.float32
+    dyn = np.zeros((T, S, 7, cap), f32)
+    for s in range(S):
+        w = rng.integers(0, 8, (T, cap))  # the warp each Gaussian aims at
+        xlo = tx + (w % 2) * 8 + 0.5
+        ylo = ty + (w // 2) * 4 + 0.5
+        r = rng.integers(0, 13, (T, cap)).astype(f32)
+        kind = rng.integers(0, 6, (T, cap))
+        side = rng.choice([-1.0, 1.0], (T, cap)).astype(f32)
+        ulp = rng.random((T, cap)) < 0.3  # one ulp beyond the edge: dead
+        x_edge = np.where(side > 0, xlo + 7, xlo) + side * r
+        y_edge = np.where(side > 0, ylo + 3, ylo) + side * r
+        x_in = xlo + rng.integers(0, 8, (T, cap))
+        y_in = ylo + rng.integers(0, 4, (T, cap))
+        mx = np.select([kind == 0, kind == 1, kind == 2, kind == 3],
+                       [x_edge, x_in, x_in + rng.choice([0.0, 0.25], (T, cap)),
+                        tx + 8], tx + rng.uniform(-30, 46, (T, cap)))
+        my = np.select([kind == 0, kind == 1, kind == 2, kind == 3],
+                       [y_in, y_edge, y_in, ty + 4 * rng.integers(0, 5, (T, cap))],
+                       ty + rng.uniform(-30, 46, (T, cap)))
+        mx, my = mx.astype(f32), my.astype(f32)
+        mx = np.where(ulp & (kind == 0),
+                      np.nextafter(mx, side * f32(np.inf)), mx)
+        my = np.where(ulp & (kind == 1),
+                      np.nextafter(my, side * f32(np.inf)), my)
+        r = np.where(kind == 2, 0.0, np.where(kind == 4, 1e4, r))
+        dyn[:, s, 0], dyn[:, s, 1], dyn[:, s, 5] = mx, my, r
+        dyn[:, s, 2] = dyn[:, s, 4] = 1e-4  # flat: alpha ~ opacity
+        dyn[:, s, 6] = rng.uniform(1.0, 9.0, (T, cap))
+    st = np.concatenate([rng.uniform(0.02, 0.12, (T, 1, cap)),
+                         rng.normal(size=(T, nchan - 1, cap))], 1).astype(f32)
+    nchunks = cap // 128
+    ks = [(s % nchunks) * 128 for s in range(S)]
+    for t in range(1, T, 2):  # saturators: 32 wide opaque Gaussians at k,
+        for k in set(ks):     # dead (r = 0, off-centre) ...
+            dyn[t, :, 5, k : k + 32] = 0.0
+            dyn[t, :, 0, k : k + 32] = tx[t] - 0.25
+            st[t, 0, k : k + 32] = 0.95
+        for s, k in enumerate(ks):  # ... except in sub-frame s
+            dyn[t, s, 5, k : k + 32] = 1e4
+            dyn[t, s, 0, k : k + 32] = tx[t] + 3.0
+    counts = np.array([0] + [c for c in EDGE_COUNTS if c <= cap] * T,
+                      np.int32)[:T]
+    counts[1::2] = cap  # the saturating rows run to their stop chunks
+    live = (np.arange(cap)[None] < counts[:, None]).astype(f32)
+    dyn *= live[:, None, None]
+    st *= live[:, None]
+    t_ = lambda x: torch.as_tensor(x, device=dev)
+    return t_(dyn), t_(st), t_(counts), t_(ids)
 
 
 def random_dense(seed, T, nchan, cap, tiles_x, dev):
@@ -476,15 +567,23 @@ class Errs:
 
 
 @torch.no_grad()
+def compare_case(tr, errs, kind, label, fargs, seed):
+    """One forward / backward comparison of the kernels of ``kind`` with
+    their twins (backward on the twin's forward outputs and random
+    cotangents), into ``errs``."""
+    e, r = compare_fwd(tr, kind, fargs)
+    errs.add(f"{kind}_fwd", e, r, FWD_TOL, label)
+    e2, r2 = compare_bwd(tr, kind, bwd_args_for(tr, kind, fargs, seed))
+    errs.add(f"{kind}_bwd", e2, r2, BWD_TOL, label)
+    print(f"# {label} {kind}: forward max abs err {e:.3e} (rel {r:.3e}), "
+          f"backward {e2:.3e} (rel to max |g| {r2:.3e})")
+
+
+@torch.no_grad()
 def phase_random(tr, errs, kind, cases):
     """Kernels vs twins on random inputs; ``cases``: (label, fwd args)."""
     for i, (label, fargs) in enumerate(cases):
-        e, r = compare_fwd(tr, kind, fargs)
-        errs.add(f"{kind}_fwd", e, r, FWD_TOL, f"random {label}")
-        e2, r2 = compare_bwd(tr, kind, bwd_args_for(tr, kind, fargs, i))
-        errs.add(f"{kind}_bwd", e2, r2, BWD_TOL, f"random {label}")
-        print(f"# random {kind} {label}: forward max abs err {e:.3e} (rel "
-              f"{r:.3e}), backward {e2:.3e} (rel to max |g| {r2:.3e})")
+        compare_case(tr, errs, kind, f"random {label}", fargs, i)
         # the early-saturating rows really stopped early
         _, tf = tr._COMPOSITORS[kind][1](*fargs)
         check(float(tf[1:9].max()) < tr.EARLY_STOP_T,
@@ -492,12 +591,13 @@ def phase_random(tr, errs, kind, cases):
     torch.cuda.synchronize()
 
 
-def scatter_case(seed, nchan, cap, dev):
-    """Random K6 inputs: a 64-row bucket of random_bucket over a 256-tile
-    image, its empty row 0 and last 4 rows turned into pad rows (count 0,
-    sid T_img), and the shared output buffers (T_img + 1 rows)."""
-    dyn, st, counts, ids = random_bucket(seed, 64, NUM_EXPOSURE, nchan, cap,
-                                         80, SCATTER_T_IMG, dev)
+def scatter_case(seed, nchan, cap, dev, maker=None):
+    """K6 inputs: a 64-row bucket of ``maker`` (random_bucket by default)
+    over a 256-tile image, its empty row 0 and last 4 rows turned into pad
+    rows (count 0, sid T_img), and the shared output buffers (T_img + 1
+    rows)."""
+    dyn, st, counts, ids = (maker or random_bucket)(
+        seed, 64, NUM_EXPOSURE, nchan, cap, 80, SCATTER_T_IMG, dev)
     counts[-4:] = 0
     ids[0] = SCATTER_T_IMG
     ids[-4:] = SCATTER_T_IMG
@@ -521,27 +621,60 @@ def compare_scatter_fwd(tr, fa):
 
 
 @torch.no_grad()
+def compare_scatter_case(tr, errs, label, fa, seed):
+    """K6 vs its twins on one scatter_case, the backward against the
+    twin's forward outputs and random cotangents."""
+    e, r = compare_scatter_fwd(tr, fa)
+    errs.add("window_scatter_fwd", e, r, FWD_TOL, label)
+    acc, tf = tr.composite_window_scatter_plain(*fa)
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    ba = fa[:4] + (acc, tf, torch.randn(acc.shape, generator=g, device=DEV),
+                   torch.randn(tf.shape, generator=g, device=DEV)) + fa[6:]
+    e2, r2 = compare_bwd(tr, "window_scatter", ba)
+    errs.add("window_scatter_bwd", e2, r2, BWD_TOL, label)
+    print(f"# {label} window_scatter: forward max abs err {e:.3e} (rel "
+          f"{r:.3e}), backward {e2:.3e} (rel to max |g| {r2:.3e})")
+
+
+@torch.no_grad()
 def phase_random_scatter(tr, errs):
     """K6 vs its twins on random buckets (caps 128-1024, nchan 11 and 5),
     backward against the twin's forward outputs and random cotangents."""
     for nchan in (11, 5):
         for i, cap in enumerate((128, 256, 512, 1024)):
-            fa = scatter_case(60 + i + nchan, nchan, cap, DEV)
-            e, r = compare_scatter_fwd(tr, fa)
-            errs.add("window_scatter_fwd", e, r, FWD_TOL,
-                     f"random cap={cap} nchan={nchan}")
-            acc, tf = tr.composite_window_scatter_plain(*fa)
-            g = torch.Generator(device=DEV).manual_seed(i)
-            ba = fa[:4] + (acc, tf, torch.randn(acc.shape, generator=g,
-                                                device=DEV),
-                           torch.randn(tf.shape, generator=g, device=DEV)) \
-                + fa[6:]
-            e2, r2 = compare_bwd(tr, "window_scatter", ba)
-            errs.add("window_scatter_bwd", e2, r2, BWD_TOL,
-                     f"random cap={cap} nchan={nchan}")
-            print(f"# random window_scatter cap={cap} nchan={nchan}: "
-                  f"forward max abs err {e:.3e} (rel {r:.3e}), backward "
-                  f"{e2:.3e} (rel to max |g| {r2:.3e})")
+            compare_scatter_case(
+                tr, errs, f"random cap={cap} nchan={nchan}",
+                scatter_case(60 + i + nchan, nchan, cap, DEV), i)
+    torch.cuda.synchronize()
+
+
+@torch.no_grad()
+def phase_edge(tr, errs):
+    """The window kernels on edge_bucket inputs, the per-warp cull's edge
+    cases: nchan 11 and 5 at caps 128, 512 and 1024, at S=11 (K1/K2), S=1
+    (K4 through the split views) and with the row map (K6); then the
+    generic instance (nchan 3 without a depth row, nchan 8 with one) on
+    random buckets. All against the twins at FWD_TOL / BWD_TOL."""
+    for nchan in (11, 5):
+        for i, cap in enumerate((128, 512, 1024)):
+            seed = 100 + 10 * nchan + i
+            label = f"edge cap={cap} nchan={nchan}"
+            compare_case(tr, errs, "window", label, edge_bucket(
+                seed, 48, NUM_EXPOSURE, nchan, cap, 80, 3600, DEV)
+                + (80, nchan, True), seed)
+            dyn, st, counts, ids = edge_bucket(seed + 1, 48, 1, nchan, cap,
+                                               80, 3600, DEV)
+            compare_case(tr, errs, "split", label,
+                         (dyn[:, 0], st, counts, ids, 80, nchan, True), seed)
+            compare_scatter_case(tr, errs, label, scatter_case(
+                seed + 2, nchan, cap, DEV, maker=edge_bucket), seed)
+    for nchan, depth in ((3, False), (8, True)):
+        for i, cap in enumerate((128, 1024)):
+            compare_case(
+                tr, errs, "window", f"generic cap={cap} nchan={nchan}",
+                random_bucket(200 + nchan + i, 64, NUM_EXPOSURE, nchan, cap,
+                              80, 3600, DEV, depth=depth)
+                + (80, nchan, depth), i)
     torch.cuda.synchronize()
 
 
@@ -566,16 +699,88 @@ def recording(tr, kind):
         tr._COMPOSITORS[kind] = orig
 
 
+def window_geometry(tr, kind, fa):
+    """(dyn (T, S, >=6, cap) rows [mx, my, a, b, c, r, ...], tile ids,
+    tiles_x) of a compositor call's forward inputs ``fa``, as the window
+    twin sees them."""
+    if kind == "dense":
+        dyn, _, ids = tr._dense_as_window(fa[0], fa[3])
+        return dyn, ids, fa[2]
+    if kind == "split":
+        return fa[0][:, None], fa[3], fa[4]
+    if kind == "window_scatter":
+        return fa[0], fa[3], fa[6]
+    return fa[0], fa[3], fa[4]
+
+
+def box_pairs(dyn, tile_ids, tiles_x, slots):
+    """(pixel, Gaussian) pairs inside alpha_at's box among the slots each
+    (row, s) walks (``slots`` (T, S) from the twin's work). The box is
+    separable: per Gaussian, the pixel columns in reach times the rows in
+    reach, with the kernels' float32 offsets."""
+    t = tile_ids.long()
+    mx, my, r = dyn[:, :, 0], dyn[:, :, 1], dyn[:, :, 5]  # (T, S, cap)
+    x0 = ((t % tiles_x) * TILE).float()[:, None, None] + 0.5
+    y0 = ((t // tiles_x) * TILE).float()[:, None, None] + 0.5
+    nx = sum(((x0 + i) - mx).abs() <= r for i in range(TILE))
+    ny = sum(((y0 + i) - my).abs() <= r for i in range(TILE))
+    walked = torch.arange(dyn.shape[-1], device=dyn.device) < slots[..., None]
+    return int((nx * ny * walked).sum())
+
+
+class StepWork:
+    """The operations and bytes of a step's compositor calls, summed call
+    by call, and the bounds they give (see OPS_PAIR, OPS_BOX)."""
+
+    def __init__(self, tr, kind):
+        self.tr, self.kind = tr, kind
+        self.n = {"pairs": 0, "boxed": 0, "live": 0}
+        self.ops = {(d, c): 0 for d in ("fwd", "bwd") for c in ("box", "all")}
+        self.bytes = {"fwd": 0.0, "bwd": 0.0}
+
+    def add(self, fa, nchan, work, by_f, by_b):
+        boxed = box_pairs(*window_geometry(self.tr, self.kind, fa),
+                          work["slots"])
+        tests = OPS_BOX * int(work["slots"].sum()) * self.tr.NWARPS
+        for key, v in (("pairs", work["pairs"]), ("boxed", boxed),
+                       ("live", work["live"])):
+            self.n[key] += v
+        for d, per_live in (("fwd", 2 * nchan + 3), ("bwd", 4 * nchan + 36)):
+            live_ops = per_live * work["live"]
+            self.ops[d, "box"] += OPS_PAIR * boxed + tests + live_ops
+            self.ops[d, "all"] += OPS_PAIR * work["pairs"] + live_ops
+        self.bytes["fwd"] += by_f
+        self.bytes["bwd"] += by_b
+
+    def bounds(self, rates, ms, plain):
+        """{d: (bound ms, "bytes" or "operations", bound ms counting alpha
+        for every pair)}: max(bytes / HBM rate, ops / FP32 rate)."""
+        bw, peak = rates
+        out = {}
+        for d in ("fwd", "bwd"):
+            t_bytes = self.bytes[d] / bw * 1e3
+            t_box, t_all = (self.ops[d, c] / peak * 1e3 for c in ("box", "all"))
+            out[d] = (max(t_bytes, t_box),
+                      "bytes" if t_bytes >= t_box else "operations",
+                      max(t_bytes, t_all))
+            print(f"# {self.kind} {d}: {self.bytes[d] / 1e9:.3f} GB -> "
+                  f"{t_bytes:.4f} ms; {self.ops[d, 'box'] / 1e9:.2f} Gop -> "
+                  f"{t_box:.4f} ms ({self.ops[d, 'all'] / 1e9:.2f} Gop with "
+                  f"alpha for every pair -> {t_all:.4f} ms); pairs "
+                  f"{self.n['pairs']}, in the box {self.n['boxed']}, live "
+                  f"{self.n['live']}; kernel {ms[d]:.3f} ms, twin "
+                  f"{plain[d]:.3f} ms")
+        return out
+
+
 @torch.no_grad()
 def measure(tr, errs, kind, rec, rates, reps=10):
     """Kernels vs twins on a recorded step's inputs (first 64 rows of each
     call), kernel and twin device times per step (all calls of the step),
-    and the step's bound: max(bytes / HBM rate, ops / FP32 rate) with the
-    pairs and payload slots the twin's loops count on this data (bytes:
-    input_bytes, plus the forward outputs read back by the backward and
-    every output written whole)."""
+    and the step's bounds (StepWork) with the pairs and payload slots the
+    twin's loops count on this data (bytes: input_bytes, plus the forward
+    outputs read back by the backward and every output written whole)."""
     k_fwd, p_fwd, k_bwd, p_bwd = tr._COMPOSITORS[kind]
-    bw, peak = rates
     cut = lambda a: tuple(x[:64] if torch.is_tensor(x) else x for x in a)
     for i, (fa, ba) in enumerate(zip(rec["fwd"], rec["bwd"])):
         e, r = compare_fwd(tr, kind, cut(fa))
@@ -588,31 +793,36 @@ def measure(tr, errs, kind, rec, rates, reps=10):
           "bwd": cuda_ms(lambda: [k_bwd(*a) for a in rec["bwd"]], reps)}
     plain = {"fwd": cuda_ms(lambda: [p_fwd(*a) for a in rec["fwd"]], 1),
              "bwd": cuda_ms(lambda: [p_bwd(*a) for a in rec["bwd"]], 1)}
-    pairs = live = by_f = by_b = 0
-    ops_f = ops_b = 0
+    sw = StepWork(tr, kind)
     for fa, ba in zip(rec["fwd"], rec["bwd"]):
-        nchan = fa[n_tensors(fa) + 1]  # after tiles_x
-        acc, tf, work = p_fwd(*fa, return_work=True)
-        pairs += work["pairs"]
-        live += work["live"]
-        ops_f += OPS_PAIR * work["pairs"] + (2 * nchan + 3) * work["live"]
-        ops_b += OPS_PAIR * work["pairs"] + (4 * nchan + 36) * work["live"]
-        ins = input_bytes(fa, work["slots"])
-        by_f += ins + nbytes(acc, tf)
         n = n_tensors(fa)
+        acc, tf, work = p_fwd(*fa, return_work=True)
+        ins = input_bytes(fa, work["slots"])
         g = k_bwd(*ba)
-        by_b += ins + nbytes(*ba[n : n + 4],
-                             *((g,) if torch.is_tensor(g) else g))
-    bounds = {}
-    for k, by, ops in (("fwd", by_f, ops_f), ("bwd", by_b, ops_b)):
-        t_bytes, t_ops = by / bw * 1e3, ops / peak * 1e3
-        bounds[k] = (max(t_bytes, t_ops),
-                     "bytes" if t_bytes >= t_ops else "operations")
-        print(f"# {kind} {k}: {by / 1e9:.3f} GB -> {t_bytes:.4f} ms; "
-              f"{ops / 1e9:.2f} Gop -> {t_ops:.4f} ms; pairs {pairs}, live "
-              f"{live}; kernel {ms[k]:.3f} ms, twin {plain[k]:.3f} ms")
+        sw.add(fa, fa[n + 1], work, ins + nbytes(acc, tf),  # nchan: after tiles_x
+               ins + nbytes(*ba[n : n + 4],
+                            *((g,) if torch.is_tensor(g) else g)))
+    bounds = sw.bounds(rates, ms, plain)
     torch.cuda.synchronize()
     return ms, plain, bounds
+
+
+@torch.no_grad()
+def cull_share(tr, rec):
+    """What the window kernels' per-warp cull (ops/rasterize.py::warp_reach)
+    does on a step's recorded window calls: the (warp, Gaussian) iterations
+    up to each (row, sub-frame)'s stop chunk, and how many the cull keeps."""
+    n = {"walked": 0, "reached": 0}
+    for fa in rec["fwd"]:
+        dyn, _, _, ids, tiles_x = fa[:5]
+        _, _, work = tr.composite_window_plain(*fa, return_work=True)
+        lane = torch.arange(dyn.shape[-1], device=dyn.device)
+        walked = (lane < work["slots"][..., None])[:, :, None, :]
+        n["walked"] += int(walked.sum()) * tr.NWARPS
+        n["reached"] += int((tr.warp_reach(dyn, ids, tiles_x)
+                             & walked).sum())
+    n["removed_share"] = 1.0 - n["reached"] / n["walked"]
+    return n
 
 
 @torch.no_grad()
@@ -623,7 +833,6 @@ def measure_scatter(tr, errs, rec, rates, reps=10):
     and its rows of the outputs (forward) or of the residuals, cotangents
     and gradients (backward)."""
     k_fwd, p_fwd, k_bwd, p_bwd = tr._COMPOSITORS["window_scatter"]
-    bw, peak = rates
     cut = lambda a: tuple(x[:64] for x in a[:4]) + tuple(a[4:])
     for i, (fa, ba) in enumerate(zip(rec["fwd"], rec["bwd"])):
         e, r = compare_scatter_fwd(tr, cut(fa))
@@ -636,27 +845,15 @@ def measure_scatter(tr, errs, rec, rates, reps=10):
           "bwd": cuda_ms(lambda: [k_bwd(*a) for a in rec["bwd"]], reps)}
     plain = {"fwd": cuda_ms(lambda: [p_fwd(*a) for a in rec["fwd"]], 1),
              "bwd": cuda_ms(lambda: [p_bwd(*a) for a in rec["bwd"]], 1)}
-    pairs = live = by_f = by_b = ops_f = ops_b = 0
+    sw = StepWork(tr, "window_scatter")
     for fa, ba in zip(rec["fwd"], rec["bwd"]):
-        nchan = fa[7]
         acc, tf, work = tr.composite_window_plain(*fa[:4], *fa[6:],
                                                   return_work=True)
-        pairs += work["pairs"]
-        live += work["live"]
-        ops_f += OPS_PAIR * work["pairs"] + (2 * nchan + 3) * work["live"]
-        ops_b += OPS_PAIR * work["pairs"] + (4 * nchan + 36) * work["live"]
         ins = input_bytes(fa[:4], work["slots"])
         rows = nbytes(acc, tf)  # this bucket's rows of accum and tfin
-        by_f += ins + rows
-        by_b += ins + 2 * rows + nbytes(*k_bwd(*ba))
-    bounds = {}
-    for k, by, ops in (("fwd", by_f, ops_f), ("bwd", by_b, ops_b)):
-        t_bytes, t_ops = by / bw * 1e3, ops / peak * 1e3
-        bounds[k] = (max(t_bytes, t_ops),
-                     "bytes" if t_bytes >= t_ops else "operations")
-        print(f"# window_scatter {k}: {by / 1e9:.3f} GB -> {t_bytes:.4f} ms; "
-              f"{ops / 1e9:.2f} Gop -> {t_ops:.4f} ms; pairs {pairs}, live "
-              f"{live}; kernel {ms[k]:.3f} ms, twin {plain[k]:.3f} ms")
+        sw.add(fa, fa[7], work, ins + rows,
+               ins + 2 * rows + nbytes(*k_bwd(*ba)))
+    bounds = sw.bounds(rates, ms, plain)
     torch.cuda.synchronize()
     return ms, plain, bounds
 
@@ -754,8 +951,9 @@ def phase_stage2(tr, errs, rates):
               f"expected {n}")
     del state
     torch.cuda.empty_cache()
+    cull = cull_share(tr, rec_w)
     return (times, launches, measure(tr, errs, "window", rec_w, rates),
-            measure(tr, errs, "dense", rec_d, rates))
+            measure(tr, errs, "dense", rec_d, rates), cull)
 
 
 def phase_stage1(tr):
@@ -1328,6 +1526,12 @@ def main():
     for line in info.get("log", "").splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"#   {line.strip()}")
+    # the window kernels' instances: exact at nchan 5 and 11, generic (3)
+    instances = {n: cuda_build.window_kernel_info(n) for n in (5, 11, 3)}
+    for n, info_n in instances.items():
+        for d, v in info_n.items():
+            print(f"# window_{d} instance for nchan {n}: " + ", ".join(
+                f"{k} {x}" for k, x in v.items()))
 
     errs = Errs()
     caps = (128, 256, 512, 1024)
@@ -1350,9 +1554,10 @@ def main():
                                  True)))
     phase_random(tr, errs, "split", split_cases)
     phase_random_scatter(tr, errs)
+    phase_edge(tr, errs)
 
     dyn_times, dyn_launches, _ = phase_bench(tr, errs, rates)
-    s2_times, s2_launches, win, dense = phase_stage2(tr, errs, rates)
+    s2_times, s2_launches, win, dense, cull = phase_stage2(tr, errs, rates)
     s1_times, s1_launches = phase_stage1(tr)
     phase_small_vs_cpu(tr, errs, rates, expected={
         "window_fwd": 2, "window_bwd": 2})
@@ -1401,8 +1606,17 @@ def main():
                 "plain_ms": plain[d],
                 "bound_ms": bounds[d][0],
                 "bound_by": bounds[d][1],
+                "bound_ms_every_pair": bounds[d][2],
                 "library_ms": None,
             })
+            if kind != "dense":  # the window kernel instances it runs
+                kernels[-1]["instances"] = {
+                    "generic" if n == 3 else f"nchan {n}": v[d]
+                    for n, v in instances.items()}
+    print(f"# cull on the stage-2 step's {4 * n_buckets()} window calls: "
+          f"keeps {cull['reached']} of {cull['walked']} (warp, Gaussian) "
+          f"iterations up to the stop chunks, removes "
+          f"{cull['removed_share']:.4f}")
     print(json.dumps({"kernels": kernels}))
     print(f"# dynamic-step launches over {TIMED_STEPS} steps: "
           f"{dyn_launches}; stage-1 step: {s1_launches}")

@@ -39,49 +39,82 @@
 // centres come from tile_ids, which the K6 entries set to the row map, as
 // the reference passes sids as the kernel's tile ids.
 //
-// Design. One thread block per (bucket row t, sub-frame s), one thread per
-// pixel (256 threads). The row's Gaussians are walked front to back in chunks
-// of 128: each chunk's dyn[t, s] and st[t] columns are staged in shared
-// memory, and every thread carries its pixel's transmittance T and its nchan
-// accumulators in registers. (One block per row over all S, as K1 does, would
-// hold S * nchan = 121 accumulators per pixel at the bench shape and spill.)
-// Blocks are ordered with s fastest, so the S blocks that re-read st[t] run
-// together and find it in L2.
+// Design (one thread block per (bucket row t, sub-frame s), 256 threads).
+// The row's Gaussians are walked front to back in chunks of 128. Each chunk
+// is staged Gaussian-major in shared memory -- (mx, my, r, op) and
+// (a, b, c) as float4 records, the nchan channels (static channels, then
+// the depth row of dyn) as a padded float4 record -- so a thread reads a
+// Gaussian with a few 16-byte broadcast loads. Warp w owns the 8x4 pixel
+// block (w & 1, w >> 1) of the tile (warp_block_pixel); a thread carries
+// its pixel's transmittance T and nchan accumulators in registers.
+// (One block per row over all S, as K1 does, would hold S * nchan = 121
+// accumulators per pixel and spill.) Blocks are ordered with s fastest, so
+// the S blocks that re-read st[t] run together and find it in L2.
+//
+// Per-warp cull. For each 32 Gaussians of a chunk, lane i tests Gaussian i
+// against its warp's block (warp_reaches: alpha_at's rounded box test at
+// the block's pixel centre nearest the mean) and the warp walks only the
+// set bits of the ballot, in order. A pair outside the box is dead in
+// alpha_at (alpha 0, T and every sum unchanged), so the cull drops no live
+// pair and moves neither T nor the stop chunk. An 8x4 block reaches a
+// Gaussian of box half-width r over (8 + 2r)(4 + 2r) pixel positions of
+// its mean, against (16 + 2r)(2 + 2r) for a 16x2 row pair.
 //
 // Early-stop rule (identical in both kernels and in the plain twins): before
 // each chunk, the (row, sub-frame) block stops if every one of its 256 pixels
 // has T < 1e-4 (__syncthreads_or). Forward and backward recompute T with the
-// same round-to-nearest intrinsics, so they stop at the same chunk. K1/K3
-// stop the whole window at once instead; the difference is confined to the
-// tail of a sub-frame after its own T fell below 1e-4.
+// same round-to-nearest intrinsics over the same live pairs, so they stop at
+// the same chunk. K1/K3 stop the whole window at once instead; the difference
+// is confined to the tail of a sub-frame after its own T fell below 1e-4.
 //
 // Backward. Per pixel it recomputes alpha and T in forward order and reads
 // Total = sum_c accum * gacc from the forward outputs: the suffix sum after a
 // Gaussian is Total - prefix_incl, so there are no stored per-Gaussian
-// residuals and no division by a small T (only by 1 - alpha >= 0.001). The
-// 6 + nchan per-Gaussian gradients are summed over the 256 pixels by a warp
-// shuffle reduction (skipped when no lane of the warp is live) into a
-// per-warp shared-memory partial, then across the 8 warps after the chunk.
-// Each block owns gdyn[t, s] and gst[t, s] and writes all of both (zeros
-// past its stop chunk); the wrapper sums gst over the S sub-frames in a
-// fixed order, so the backward is deterministic (no atomics: a resumed
-// run repeats an uninterrupted one bit for bit).
+// residuals and no division by a small T (only by 1 - alpha >= 0.001). A
+// live pixel gives 6 + nchan values: the moments g_sigma * (1, dx, dy, dx^2,
+// dx dy, dy^2) and ga_c * w; the mean, conic and opacity gradients are
+// linear in those sums (g_mx = -(a Sx + b Sy), g_op = -S1 / op, ...). For
+// each reached Gaussian with a live lane, the warp sums them with a
+// transposed butterfly (warp_sum_transposed: 16 shuffles at nchan 5, 21 at
+// nchan 11, against 55 and 85 for a butterfly per value) and writes one
+// partial per value to shared memory. Every 32 Gaussians the block sums the
+// 8 warp partials in warp order (skipping warps that wrote none) and writes
+// those slots' gradients; the partial buffer is double-buffered over the
+// 32-Gaussian sub-chunks (one barrier each), so it holds 2 x 8 x 32 x
+// (6 + nchan) floats. Each block owns gdyn[t, s] and gst[t, s] and writes
+// all of both (zeros past its stop chunk); the wrapper sums gst over the S
+// sub-frames in a fixed order, so the backward is deterministic (no atomics:
+// a resumed run repeats an uninterrupted one bit for bit).
 //
-// What bounds it on an H100. At the bench shape (1280x720, S=11, 4 buckets
-// of 1.16M slots) a step's forward moves 0.69 GB and the backward 1.59 GB
-// (the payload slots before each (row, sub-frame)'s stop chunk, every
-// other input read once, each output written once): 0.21 / 0.47 ms at
-// 3.35 TB/s. The work is larger: 1.58G (pixel, Gaussian) pairs up to each
-// row's stop chunk, 333M of them live, ~20 FP32 ops per pair for alpha plus
-// 2*nchan+3 (forward) or 4*nchan+36 (backward) per live pair: 0.60 / 0.87 ms
-// at 67 TFLOP/s. So both kernels are bound by operations, not bytes. This
-// first version measures 5.04 / 29.65 ms per step on an H100 SXM at 700 W
-// (chip_smoke.py): the forward walks every Gaussian in every pixel thread,
-// dead pairs included (79% of pairs are outside the 3-sigma box or below
-// 1/255); the backward adds a 5-step shuffle reduction of 6 + nchan values
-// for every Gaussian that is live in any lane of a warp. Culling dead pairs
-// per warp before the alpha math and reducing fewer values per Gaussian are
-// the next steps.
+// Instances: nchan 5 (static windows) and 11 (dynamic window) exactly, and
+// a generic one up to 32 channels with runtime guards. None spills (ptxas,
+// CUDA 12 on an H100): forward 39 / 42 / 61 registers and 6 / 5 / 4 blocks
+// per SM (nchan 5 / 11 / generic); backward 48 / 63 / 126 registers, 31 /
+// 45 / up to 100 KB of shared memory, 5 / 4 / 2 blocks per SM.
+//
+// What bounds it on an H100. On the bench-shape stage-2 step's 16 calls (3
+// static windows at nchan 5 and the dynamic window at nchan 11, 1280x720,
+// S=11, 4 buckets of 1.16M slots each) the forward moves 1.69 GB and the
+// backward 4.47 GB (the payload slots before each (row, sub-frame)'s stop
+// chunk, every other input read once, each output written once): 0.51 /
+// 1.33 ms at 3.35 TB/s. Of the 3.93G (pixel, Gaussian) pairs up to the stop
+// chunks, 1.50G lie inside alpha_at's box and 703M are live. Alpha (~20
+// FP32 ops) is needed only inside the box, plus a box test per Gaussian and
+// 8x4 block, and 2*nchan+3 (forward) or 4*nchan+36 (backward) ops per live
+// pair: 43.6 / 77.8 Gop, 0.65 / 1.16 ms at 67 TFLOP/s. So the forward is
+// bound by operations (0.65 ms) and the backward by bytes (1.33 ms).
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W): 4.776 / 13.828
+// ms, 14% / 10% of those bounds; the design before the cull and the
+// transposed butterfly took 10.350 / 49.764 ms on the same calls and card
+// (scripts/torch_window_ab.py). The cull keeps 53% of the (warp, Gaussian)
+// iterations. Ablations of the backward on the same calls (the same
+// script, -DD4GS_ABLATE): without the lane sums 10.09 ms; walking no
+// Gaussian (staging every chunk up to the count, the combine and the
+// writes) 4.41 ms; the forward walking none 1.61 ms of 4.80. So alpha
+// and the live lanes' values take most of the backward, the lane sums
+// about a quarter. warp_sum_transposed is written as template steps with
+// constant indices: written as a loop over the value indices, ptxas kept
+// the nchan 11 values on the stack.
 
 #include <cuda_runtime.h>
 
@@ -91,9 +124,69 @@ namespace {
 
 using namespace d4gs;
 
-constexpr int MAX_FD = 7;
+constexpr int SUB = 32;  // Gaussians per ballot: one per lane
 
+// Channel slots per staged Gaussian: MAXC rounded up to float4s.
 template <int MAXC>
+__host__ __device__ constexpr int ncp() {
+  return (MAXC + 3) / 4 * 4;
+}
+
+// One chunk staged Gaussian-major: geo (mx, my, r, op), con (a, b, c, -),
+// ch[g * NCP + c] the channels (static channels, then dyn's depth row).
+template <int MAXC>
+struct Chunk {
+  float4 geo[CHUNK];
+  float4 con[CHUNK];
+  float4 ch[CHUNK * ncp<MAXC>() / 4];
+};
+
+// Shared-memory address of value f (dyn rows, then static rows) of slot g.
+template <int MAXC>
+__device__ __forceinline__ float* stage_slot(Chunk<MAXC>& c, int f, int g,
+                                             int Fd, int n_static) {
+  constexpr int NCP = ncp<MAXC>();
+  float* geo = reinterpret_cast<float*>(c.geo) + 4 * g;
+  float* con = reinterpret_cast<float*>(c.con) + 4 * g;
+  float* ch = reinterpret_cast<float*>(c.ch) + g * NCP;
+  if (f < Fd)  // dyn rows: mx, my, a, b, c, r (, depth)
+    return f < 2 ? geo + f : f < 5 ? con + (f - 2) : f == 5 ? geo + 2
+                                                             : ch + n_static;
+  return f == Fd ? geo + 3 : ch + (f - Fd - 1);  // opacity, channels
+}
+
+// Stage slots [off, off + n) of the (Fd, cap) dyn slab and the (Fs, cap)
+// static slab into the chunk records.
+template <int MAXC>
+__device__ __forceinline__ void stage_chunk(Chunk<MAXC>& c, const float* d_row,
+                                            const float* s_row, int Fd, int Fs,
+                                            int cap, int off, int n,
+                                            int n_static) {
+  for (int i = threadIdx.x; i < (Fd + Fs) * CHUNK; i += P) {
+    const int f = i / CHUNK, g = i % CHUNK;  // f is warp-uniform
+    if (g >= n) continue;
+    *stage_slot(c, f, g, Fd, n_static) =
+        f < Fd ? d_row[(size_t)f * cap + off + g]
+               : s_row[(size_t)(f - Fd) * cap + off + g];
+  }
+}
+
+// Ballot of the Gaussians [base, base + SUB) of a staged chunk of n that
+// reach the warp's block.
+template <int MAXC>
+__device__ __forceinline__ unsigned reach_ballot(const Chunk<MAXC>& c,
+                                                 const WarpBox& box, int base,
+                                                 int n) {
+  const int g = base + (threadIdx.x & 31);
+  bool reach = false;
+  if (g < n && D4GS_ABLATE != 2) {
+    const float4 q = c.geo[g];
+    reach = warp_reaches(box, q.x, q.y, q.z);
+  }
+  return __ballot_sync(FULL_MASK, reach);
+}
+
+template <int MAXC, bool EXACT>
 __global__ void __launch_bounds__(P)
 window_fwd_kernel(const int* __restrict__ tile_ids,
                   const int* __restrict__ counts,
@@ -102,13 +195,15 @@ window_fwd_kernel(const int* __restrict__ tile_ids,
                   float* __restrict__ accum, float* __restrict__ tfin, int S,
                   int Fd, int Fs, int cap, int nchan, int depth_in_dyn,
                   int tiles_x) {
-  __shared__ float sd[MAX_FD * CHUNK];
-  __shared__ float ss[(MAXC + 1) * CHUNK];
-  const int s = blockIdx.x, t = blockIdx.y, p = threadIdx.x;
+  __shared__ Chunk<MAXC> sm;
+  const int s = blockIdx.x, t = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int p = warp_block_pixel(warp, lane);
   const int count = min(counts[t], cap);
   const int tile = tile_ids[t];
   float px, py;
   pixel_centre(tile, tiles_x, p, &px, &py);
+  const WarpBox box = warp_box(tile, tiles_x, warp);
   const int n_static = nchan - depth_in_dyn;
   const size_t row = (size_t)t * S + s;
   const size_t orow = (size_t)(rows ? rows[t] : t) * S + s;  // output row
@@ -124,38 +219,78 @@ window_fwd_kernel(const int* __restrict__ tile_ids,
     // stop rule; also the barrier before shared memory is overwritten
     if (!__syncthreads_or(T >= EARLY_STOP_T)) break;
     const int off = ci * CHUNK;
-    stage(sd, d_row, Fd, cap, off);
-    stage(ss, s_row, Fs, cap, off);
-    __syncthreads();
     const int n = min(CHUNK, count - off);
-    for (int g = 0; g < n; ++g) {
-      const AlphaOut a =
-          alpha_at(sd[g], sd[CHUNK + g], sd[2 * CHUNK + g],
-                   sd[3 * CHUNK + g], sd[4 * CHUNK + g], sd[5 * CHUNK + g],
-                   ss[g], px, py);
-      if (!a.live) continue;
-      const float w = __fmul_rn(a.alpha, T);
+    stage_chunk(sm, d_row, s_row, Fd, Fs, cap, off, n, n_static);
+    __syncthreads();
+    for (int base = 0; base < n; base += SUB) {
+      unsigned m = reach_ballot(sm, box, base, n);
+      while (m) {
+        const int g = base + __ffs(m) - 1;
+        m &= m - 1;
+        const float4 q = sm.geo[g], k = sm.con[g];
+        const AlphaOut a = alpha_at(q.x, q.y, k.x, k.y, k.z, q.z, q.w, px, py);
+        if (!a.live) continue;
+        const float w = __fmul_rn(a.alpha, T);
+        const float4* chg = sm.ch + g * (ncp<MAXC>() / 4);
 #pragma unroll
-      for (int c = 0; c < MAXC; ++c) {
-        if (c < nchan) {
-          const float ch = (depth_in_dyn && c == n_static)
-                               ? sd[6 * CHUNK + g]
-                               : ss[(1 + c) * CHUNK + g];
-          acc[c] += w * ch;
+        for (int j = 0; j < ncp<MAXC>() / 4; ++j) {
+          if (!EXACT && 4 * j >= nchan) break;
+          const float4 x = chg[j];
+          const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 4 * j + e;
+            if (c < MAXC && (EXACT || c < nchan)) acc[c] += w * xs[e];
+          }
         }
+        T = __fmul_rn(T, __fsub_rn(1.0f, a.alpha));
       }
-      T = __fmul_rn(T, __fsub_rn(1.0f, a.alpha));
     }
   }
   float* a_out = accum + orow * nchan * P;
 #pragma unroll
   for (int c = 0; c < MAXC; ++c)
-    if (c < nchan) a_out[c * P + p] = acc[c];
+    if (EXACT || c < nchan) a_out[c * P + p] = acc[c];
   tfin[orow * P + p] = T;
 }
 
+// The backward's reduction: values 0..KT-1 by the transposed butterfly,
+// the rest (NV_MAX > KT) each by warp_sum.
 template <int MAXC>
-__global__ void __launch_bounds__(P)
+struct BwdShape {
+  static constexpr int NV_MAX = 6 + MAXC;
+  static constexpr int KT = NV_MAX <= 20 ? 16 : 32;
+  static constexpr int NVR = NV_MAX > KT ? NV_MAX : KT;  // registers
+};
+
+// Floats of the partial buffer: 2 sub-chunk buffers x NWARPS x SUB x nvp,
+// nvp = 6 + nchan made odd (conflict-free column reads).
+__host__ __device__ int part_stride(int nchan) { return (6 + nchan) | 1; }
+size_t bwd_smem_bytes(int nchan) {
+  return sizeof(float) * 2 * NWARPS * SUB * (size_t)part_stride(nchan);
+}
+
+// Sum, in warp order, of value kv of one Gaussian's warp partials (col:
+// warp 0's, warp w's at w * stride), over the warps set in `from`.
+__device__ __forceinline__ float sum_warps(const float* col, int stride,
+                                           unsigned from, int kv) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int w = 0; w < NWARPS; ++w)
+    if (from & (1u << w)) acc += col[w * stride + kv];
+  return acc;
+}
+
+// Blocks per SM the backward instances are compiled for: __launch_bounds__
+// caps their registers at 65536 / (256 * this). 5 (48 registers) fits the
+// nchan 5 instance without spilling, 4 (64) the nchan 11 one.
+template <int MAXC, bool EXACT>
+__host__ __device__ constexpr int bwd_min_blocks() {
+  return !EXACT ? 1 : MAXC <= 5 ? 5 : 4;
+}
+
+template <int MAXC, bool EXACT>
+__global__ void __launch_bounds__(P, (bwd_min_blocks<MAXC, EXACT>()))
 window_bwd_kernel(const int* __restrict__ tile_ids,
                   const int* __restrict__ counts,
                   const int* __restrict__ rows,
@@ -166,28 +301,30 @@ window_bwd_kernel(const int* __restrict__ tile_ids,
                   float* __restrict__ gdyn, float* __restrict__ gst, int S,
                   int Fd, int Fs, int cap, int nchan, int depth_in_dyn,
                   int tiles_x) {
-  extern __shared__ float smem[];
-  float* sd = smem;                         // (MAX_FD, CHUNK)
-  float* ss = sd + MAX_FD * CHUNK;          // (MAXC + 1, CHUNK)
-  float* part = ss + (MAXC + 1) * CHUNK;    // (6 + nchan, NWARPS, CHUNK)
-  const int s = blockIdx.x, t = blockIdx.y, p = threadIdx.x;
-  const int lane = p & 31, warp = p >> 5;
+  using B = BwdShape<MAXC>;
+  __shared__ Chunk<MAXC> sm;
+  __shared__ unsigned wrote[2][NWARPS];  // per sub-chunk: Gaussians written
+  extern __shared__ float part[];        // (2, NWARPS, SUB, nvp)
+  const int s = blockIdx.x, t = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int p = warp_block_pixel(warp, lane);
   const int count = min(counts[t], cap);
   const int tile = tile_ids[t];
-  float px, py;
-  pixel_centre(tile, tiles_x, p, &px, &py);
   const int n_static = nchan - depth_in_dyn;
-  const int nv = 6 + nchan;
+  const int nv = 6 + nchan, nvp = part_stride(nchan);
   const size_t row = (size_t)t * S + s;
   const float* d_row = dyn + row * Fd * cap;
   const float* s_row = st + (size_t)t * Fs * cap;
   float* gd_row = gdyn + row * Fd * cap;
   float* gs_row = gst + row * Fs * cap;
   if (count == 0) {  // an empty row: zero gradients, residuals never read
-    for (int i = p; i < Fd * cap; i += P) gd_row[i] = 0.0f;
-    for (int i = p; i < Fs * cap; i += P) gs_row[i] = 0.0f;
+    for (int i = threadIdx.x; i < Fd * cap; i += P) gd_row[i] = 0.0f;
+    for (int i = threadIdx.x; i < Fs * cap; i += P) gs_row[i] = 0.0f;
     return;
   }
+  float px, py;
+  pixel_centre(tile, tiles_x, p, &px, &py);
+  const WarpBox box = warp_box(tile, tiles_x, warp);
   const size_t orow = (size_t)(rows ? rows[t] : t) * S + s;  // residual row
 
   float ga[MAXC];
@@ -195,7 +332,7 @@ window_bwd_kernel(const int* __restrict__ tile_ids,
 #pragma unroll
   for (int c = 0; c < MAXC; ++c) {
     ga[c] = 0.0f;
-    if (c < nchan) {
+    if (EXACT || c < nchan) {
       ga[c] = gacc[(orow * nchan + c) * P + p];
       total += accum[(orow * nchan + c) * P + p] * ga[c];
     }
@@ -209,133 +346,170 @@ window_bwd_kernel(const int* __restrict__ tile_ids,
     // stop rule (same as the forward); barrier before smem reuse
     if (!__syncthreads_or(T >= EARLY_STOP_T)) break;
     const int off = ci * CHUNK;
-    stage(sd, d_row, Fd, cap, off);
-    stage(ss, s_row, Fs, cap, off);
-    __syncthreads();
     const int n = min(CHUNK, count - off);
-    for (int g = 0; g < n; ++g) {
-      const float ca = sd[2 * CHUNK + g], cb = sd[3 * CHUNK + g],
-                  cc = sd[4 * CHUNK + g], op = ss[g];
-      const AlphaOut a = alpha_at(sd[g], sd[CHUNK + g], ca, cb, cc,
-                                  sd[5 * CHUNK + g], op, px, py);
-      float v[6 + MAXC];
+    stage_chunk(sm, d_row, s_row, Fd, Fs, cap, off, n, n_static);
+    __syncthreads();
+    for (int base = 0; base < CHUNK; base += SUB) {
+      const int buf = (base / SUB) & 1;
+      float* pw = part + (size_t)(buf * NWARPS + warp) * SUB * nvp;
+      unsigned m = reach_ballot(sm, box, base, n), done = 0;
+      while (m) {
+        const int gs = __ffs(m) - 1;
+        m &= m - 1;
+        const int g = base + gs;
+        const float4 q = sm.geo[g], k = sm.con[g];
+        const AlphaOut a = alpha_at(q.x, q.y, k.x, k.y, k.z, q.z, q.w, px, py);
+        float v[B::NVR];
 #pragma unroll
-      for (int k = 0; k < 6 + MAXC; ++k) v[k] = 0.0f;
-      if (a.live) {
-        const float w = __fmul_rn(a.alpha, T);
-        float sdot = 0.0f;
+        for (int j = 0; j < B::NVR; ++j) v[j] = 0.0f;
+        if (a.live) {
+          const float w = __fmul_rn(a.alpha, T);
+          const float4* chg = sm.ch + g * (ncp<MAXC>() / 4);
+          float sdot = 0.0f;
 #pragma unroll
-        for (int c = 0; c < MAXC; ++c) {
-          if (c < nchan) {
-            const float ch = (depth_in_dyn && c == n_static)
-                                 ? sd[6 * CHUNK + g]
-                                 : ss[(1 + c) * CHUNK + g];
-            sdot += ga[c] * ch;
-            v[6 + c] = ga[c] * w;
+          for (int j = 0; j < ncp<MAXC>() / 4; ++j) {
+            if (!EXACT && 4 * j >= nchan) break;
+            const float4 x = chg[j];
+            const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int c = 4 * j + e;
+              if (c < MAXC && (EXACT || c < nchan)) {
+                sdot += ga[c] * xs[e];
+                v[6 + c] = ga[c] * w;
+              }
+            }
+          }
+          prefix += w * sdot;  // inclusive prefix
+          if (a.active) {
+            const float suffix = total - prefix;
+            const float g_alpha =  // 1 - alpha >= 0.001
+                T * sdot - __fdividef(suffix + gt_term, 1.0f - a.alpha);
+            const float g_sigma = -a.alpha * g_alpha;
+            v[0] = g_sigma;
+            v[1] = g_sigma * a.dx;
+            v[2] = g_sigma * a.dy;
+            v[3] = v[1] * a.dx;
+            v[4] = v[1] * a.dy;
+            v[5] = v[2] * a.dy;
+          }
+          T = __fmul_rn(T, __fsub_rn(1.0f, a.alpha));
+        }
+        if (!__any_sync(FULL_MASK, a.live)) continue;  // warp-uniform
+        if (D4GS_ABLATE != 1) warp_sum_transposed<B::KT>(v);
+        float* pg = pw + gs * nvp;
+        const int idx = B::KT == 16 ? lane >> 1 : lane;
+        if ((B::KT == 32 || !(lane & 1)) && idx < nv) pg[idx] = v[0];
+#pragma unroll
+        for (int j = B::KT; j < B::NVR; ++j) {
+          if (EXACT || j < nv) {
+            const float x = D4GS_ABLATE == 1 ? v[j] : warp_sum(v[j]);
+            if (lane == 0) pg[j] = x;
           }
         }
-        prefix += w * sdot;  // inclusive prefix
-        if (a.active) {
-          const float suffix = total - prefix;
-          const float g_alpha =
-              T * sdot - (suffix + gt_term) / (1.0f - a.alpha);
-          const float g_sigma = -a.alpha * g_alpha;
-          v[0] = -(ca * a.dx + cb * a.dy) * g_sigma;
-          v[1] = -(cc * a.dy + cb * a.dx) * g_sigma;
-          v[2] = 0.5f * a.dx * a.dx * g_sigma;
-          v[3] = a.dx * a.dy * g_sigma;
-          v[4] = 0.5f * a.dy * a.dy * g_sigma;
-          v[5] = a.alpha / fmaxf(op, 1e-12f) * g_alpha;
+        done |= 1u << gs;
+      }
+      if (lane == 0) wrote[buf][warp] = done;
+      __syncthreads();
+      // Sum the 8 warp partials of Gaussians [base, base + SUB) in warp
+      // order and write their gradients: rows f = g_mx, g_my, g_a, g_b,
+      // g_c, 0 (radius), g_op, then the channels.
+      unsigned any = 0;
+#pragma unroll
+      for (int w = 0; w < NWARPS; ++w) any |= wrote[buf][w];
+      for (int i = threadIdx.x; i < (7 + nchan) * SUB; i += P) {
+        const int f = i / SUB, gs = i % SUB;  // f is warp-uniform
+        const unsigned bit = 1u << gs;
+        float val = 0.0f;
+        if ((any & bit) && f != 5) {
+          const float* col = part + (size_t)buf * NWARPS * SUB * nvp + gs * nvp;
+          unsigned from = 0;  // the warps that wrote this Gaussian
+#pragma unroll
+          for (int w = 0; w < NWARPS; ++w)
+            from |= ((wrote[buf][w] & bit) ? 1u : 0u) << w;
+          const auto sum = [=](int kv) {
+            return sum_warps(col, SUB * nvp, from, kv);
+          };
+          const int g = base + gs;
+          if (f < 2) {
+            const float4 k = sm.con[g];
+            const float sx = sum(1), sy = sum(2);
+            val = f == 0 ? -(k.x * sx + k.y * sy) : -(k.z * sy + k.y * sx);
+          } else if (f < 5) {  // 0.5 Sxx, Sxy, 0.5 Syy
+            val = (f == 3 ? 1.0f : 0.5f) * sum(f + 1);
+          } else if (f == 6) {
+            val = -sum(0) / fmaxf(sm.geo[g].w, 1e-12f);
+          } else {
+            val = sum(f - 1);  // channel f - 7 is value 6 + (f - 7)
+          }
         }
-        T = __fmul_rn(T, __fsub_rn(1.0f, a.alpha));
-      }
-      if (__any_sync(0xffffffffu, a.live)) {
-#pragma unroll
-        for (int k = 0; k < 6 + MAXC; ++k)
-          if (k < nv) v[k] = warp_sum(v[k]);
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int k = 0; k < 6 + MAXC; ++k)
-          if (k < nv) part[(k * NWARPS + warp) * CHUNK + g] = v[k];
-      }
-    }
-    __syncthreads();
-    // sum the 8 warp partials per (value, Gaussian) and write the chunk
-    for (int i = p; i < nv * CHUNK; i += P) {
-      const int k = i / CHUNK, g = i % CHUNK;
-      float sum = 0.0f;
-      if (g < n) {
-#pragma unroll
-        for (int w = 0; w < NWARPS; ++w) sum += part[(k * NWARPS + w) * CHUNK + g];
-      }
-      const int slot = off + g;
-      if (k < 5) {
-        gd_row[(size_t)k * cap + slot] = sum;
-      } else if (k == 5) {
-        gs_row[slot] = sum;
-      } else if (k - 6 < n_static) {
-        gs_row[(size_t)(k - 5) * cap + slot] = sum;
-      } else {
-        gd_row[(size_t)6 * cap + slot] = sum;  // depth channel -> dyn row 6
+        const size_t slot = (size_t)off + base + gs;
+        if (f < 6) {
+          gd_row[(size_t)f * cap + slot] = val;
+        } else if (f == 6) {
+          gs_row[slot] = val;
+        } else if (f - 7 < n_static) {
+          gs_row[(size_t)(f - 6) * cap + slot] = val;
+        } else {
+          gd_row[(size_t)6 * cap + slot] = val;  // depth channel -> dyn row 6
+        }
       }
     }
-    for (int g = p; g < CHUNK; g += P) gd_row[(size_t)5 * cap + off + g] = 0.0f;
   }
   // slots this (row, s) never reached get zero gradients
   for (int f = 0; f < Fd; ++f)
-    for (int i = ci * CHUNK + p; i < cap; i += P) gd_row[(size_t)f * cap + i] = 0.0f;
+    for (int i = ci * CHUNK + threadIdx.x; i < cap; i += P)
+      gd_row[(size_t)f * cap + i] = 0.0f;
   for (int f = 0; f < Fs; ++f)
-    for (int i = ci * CHUNK + p; i < cap; i += P) gs_row[(size_t)f * cap + i] = 0.0f;
+    for (int i = ci * CHUNK + threadIdx.x; i < cap; i += P)
+      gs_row[(size_t)f * cap + i] = 0.0f;
 }
 
-template <int MAXC>
-size_t bwd_smem_bytes(int nchan) {
-  return sizeof(float) *
-         ((size_t)MAX_FD * CHUNK + (size_t)(MAXC + 1) * CHUNK +
-          (size_t)(6 + nchan) * NWARPS * CHUNK);
-}
-
-template <int MAXC>
+template <int MAXC, bool EXACT>
 int launch_fwd(const void* tile_ids, const void* counts, const void* rows,
                const void* dyn, const void* st, void* accum, void* tfin,
                int T, int S, int Fd, int Fs, int cap, int nchan,
                int depth_in_dyn, int tiles_x, cudaStream_t stream) {
-  window_fwd_kernel<MAXC><<<dim3(S, T), P, 0, stream>>>(
+  window_fwd_kernel<MAXC, EXACT><<<dim3(S, T), P, 0, stream>>>(
       (const int*)tile_ids, (const int*)counts, (const int*)rows,
-      (const float*)dyn,
-      (const float*)st, (float*)accum, (float*)tfin, S, Fd, Fs, cap, nchan,
-      depth_in_dyn, tiles_x);
-  return (int)cudaGetLastError();
-}
-
-template <int MAXC>
-int launch_bwd(const void* tile_ids, const void* counts, const void* rows,
-               const void* dyn, const void* st, const void* accum,
-               const void* tfin,
-               const void* gacc, const void* gt, void* gdyn, void* gst, int T,
-               int S, int Fd, int Fs, int cap, int nchan, int depth_in_dyn,
-               int tiles_x, cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes<MAXC>(nchan);
-  cudaError_t err = cudaFuncSetAttribute(
-      window_bwd_kernel<MAXC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  window_bwd_kernel<MAXC><<<dim3(S, T), P, smem, stream>>>(
-      (const int*)tile_ids, (const int*)counts, (const int*)rows,
-      (const float*)dyn,
-      (const float*)st, (const float*)accum, (const float*)tfin,
-      (const float*)gacc, (const float*)gt, (float*)gdyn, (float*)gst, S, Fd,
+      (const float*)dyn, (const float*)st, (float*)accum, (float*)tfin, S, Fd,
       Fs, cap, nchan, depth_in_dyn, tiles_x);
   return (int)cudaGetLastError();
 }
+
+template <int MAXC, bool EXACT>
+int launch_bwd(const void* tile_ids, const void* counts, const void* rows,
+               const void* dyn, const void* st, const void* accum,
+               const void* tfin, const void* gacc, const void* gt, void* gdyn,
+               void* gst, int T, int S, int Fd, int Fs, int cap, int nchan,
+               int depth_in_dyn, int tiles_x, cudaStream_t stream) {
+  const size_t smem = bwd_smem_bytes(nchan);
+  cudaError_t err = cudaFuncSetAttribute(
+      window_bwd_kernel<MAXC, EXACT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  window_bwd_kernel<MAXC, EXACT><<<dim3(S, T), P, smem, stream>>>(
+      (const int*)tile_ids, (const int*)counts, (const int*)rows,
+      (const float*)dyn, (const float*)st, (const float*)accum,
+      (const float*)tfin, (const float*)gacc, (const float*)gt, (float*)gdyn,
+      (float*)gst, S, Fd, Fs, cap, nchan, depth_in_dyn, tiles_x);
+  return (int)cudaGetLastError();
+}
+
+constexpr int MAX_NCHAN = 32;  // the generic instance's channels
 
 bool shape_ok(int T, int S, int Fd, int Fs, int cap, int nchan,
               int depth_in_dyn) {
   return T > 0 && S > 0 && S <= 65535 && cap > 0 && cap % CHUNK == 0 &&
          Fd == 6 + depth_in_dyn && Fs == 1 + nchan - depth_in_dyn &&
-         nchan >= 1;
+         nchan >= 1 && nchan <= MAX_NCHAN;
 }
+
+// The instance for nchan: exact at 5 (static windows) and 11 (dynamic
+// window), generic up to MAX_NCHAN.
+#define D4GS_BY_NCHAN(nchan, CALL)                          \
+  ((nchan) == 5 ? CALL(5, true) : (nchan) == 11 ? CALL(11, true) \
+                                                : CALL(MAX_NCHAN, false))
 
 int dispatch_fwd(const void* tile_ids, const void* counts, const void* rows,
                  const void* dyn, const void* st, void* accum, void* tfin,
@@ -343,17 +517,12 @@ int dispatch_fwd(const void* tile_ids, const void* counts, const void* rows,
                  int depth_in_dyn, int tiles_x, void* stream) {
   if (!shape_ok(T, S, Fd, Fs, cap, nchan, depth_in_dyn))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st_ = (cudaStream_t)stream;
-  if (nchan <= 8)
-    return launch_fwd<8>(tile_ids, counts, rows, dyn, st, accum, tfin, T, S,
-                         Fd, Fs, cap, nchan, depth_in_dyn, tiles_x, st_);
-  if (nchan <= 16)
-    return launch_fwd<16>(tile_ids, counts, rows, dyn, st, accum, tfin, T, S,
-                          Fd, Fs, cap, nchan, depth_in_dyn, tiles_x, st_);
-  if (nchan <= 32)
-    return launch_fwd<32>(tile_ids, counts, rows, dyn, st, accum, tfin, T, S,
-                          Fd, Fs, cap, nchan, depth_in_dyn, tiles_x, st_);
-  return (int)cudaErrorInvalidValue;
+#define D4GS_FWD(MAXC, EXACT)                                              \
+  launch_fwd<MAXC, EXACT>(tile_ids, counts, rows, dyn, st, accum, tfin, T, \
+                          S, Fd, Fs, cap, nchan, depth_in_dyn, tiles_x,    \
+                          (cudaStream_t)stream)
+  return D4GS_BY_NCHAN(nchan, D4GS_FWD);
+#undef D4GS_FWD
 }
 
 int dispatch_bwd(const void* tile_ids, const void* counts, const void* rows,
@@ -363,20 +532,41 @@ int dispatch_bwd(const void* tile_ids, const void* counts, const void* rows,
                  int nchan, int depth_in_dyn, int tiles_x, void* stream) {
   if (!shape_ok(T, S, Fd, Fs, cap, nchan, depth_in_dyn))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st_ = (cudaStream_t)stream;
-  if (nchan <= 8)
-    return launch_bwd<8>(tile_ids, counts, rows, dyn, st, accum, tfin, gacc,
-                         gt, gdyn, gst, T, S, Fd, Fs, cap, nchan,
-                         depth_in_dyn, tiles_x, st_);
-  if (nchan <= 16)
-    return launch_bwd<16>(tile_ids, counts, rows, dyn, st, accum, tfin, gacc,
-                          gt, gdyn, gst, T, S, Fd, Fs, cap, nchan,
-                          depth_in_dyn, tiles_x, st_);
-  if (nchan <= 32)
-    return launch_bwd<32>(tile_ids, counts, rows, dyn, st, accum, tfin, gacc,
-                          gt, gdyn, gst, T, S, Fd, Fs, cap, nchan,
-                          depth_in_dyn, tiles_x, st_);
-  return (int)cudaErrorInvalidValue;
+#define D4GS_BWD(MAXC, EXACT)                                                \
+  launch_bwd<MAXC, EXACT>(tile_ids, counts, rows, dyn, st, accum, tfin,      \
+                          gacc, gt, gdyn, gst, T, S, Fd, Fs, cap, nchan,     \
+                          depth_in_dyn, tiles_x, (cudaStream_t)stream)
+  return D4GS_BY_NCHAN(nchan, D4GS_BWD);
+#undef D4GS_BWD
+}
+
+// Registers, local (spill) bytes, static and dynamic shared memory and
+// the most resident blocks per SM of one kernel instance, into out[0..4].
+template <typename K>
+int kernel_info(K kernel, size_t dyn_smem, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn_smem);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, P,
+                                                        dyn_smem);
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = (int)dyn_smem;
+  out[4] = blocks;
+  return (int)err;
+}
+
+template <int MAXC, bool EXACT>
+int info_pair(int nchan, int* out) {
+  const int err = kernel_info(window_fwd_kernel<MAXC, EXACT>, 0, out);
+  return err ? err
+             : kernel_info(window_bwd_kernel<MAXC, EXACT>,
+                           bwd_smem_bytes(nchan), out + 5);
 }
 
 }  // namespace
@@ -427,6 +617,16 @@ extern "C" int d4gs_window_scatter_bwd(const void* sids, const void* counts,
   return dispatch_bwd(sids, counts, sids, dyn, st, accum, tfin, gacc, gt,
                       gdyn, gst, T, S, Fd, Fs, cap, nchan, depth_in_dyn,
                       tiles_x, stream);
+}
+
+// Registers, local (spill) bytes, static and dynamic shared memory, and
+// the most resident blocks per SM, of the forward (out[0..4]) and backward
+// (out[5..9]) instances that a call with nchan channels launches.
+extern "C" int d4gs_window_kernel_info(int nchan, int* out) {
+  if (nchan < 1 || nchan > MAX_NCHAN) return (int)cudaErrorInvalidValue;
+#define D4GS_INFO(MAXC, EXACT) info_pair<MAXC, EXACT>(nchan, out)
+  return D4GS_BY_NCHAN(nchan, D4GS_INFO);
+#undef D4GS_INFO
 }
 
 extern "C" const char* d4gs_error_string(int err) {

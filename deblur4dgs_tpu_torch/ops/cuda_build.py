@@ -37,16 +37,16 @@ _lib = None
 BUILD_INFO: dict = {}
 
 
-def _sources() -> list[Path]:
-    srcs = sorted(CSRC_DIR.glob("*.cu"))
+def _sources(csrc_dir: Path) -> list[Path]:
+    srcs = sorted(csrc_dir.glob("*.cu"))
     if not srcs:
-        raise FileNotFoundError(f"no CUDA sources under {CSRC_DIR}")
+        raise FileNotFoundError(f"no CUDA sources under {csrc_dir}")
     return srcs
 
 
-def _hash(srcs: list[Path]) -> str:
-    h = hashlib.sha256(" ".join(ARCH_FLAGS).encode())
-    for src in srcs + sorted(CSRC_DIR.glob("*.cuh")):
+def _hash(srcs: list[Path], csrc_dir: Path, flags: list[str]) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in srcs + sorted(csrc_dir.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()
@@ -78,27 +78,31 @@ def _run_all(cmds: list[list[str]]) -> str:
     return "".join(logs)
 
 
-def build(verbose_ptxas: bool = False) -> Path:
-    """Compile csrc/*.cu into BUILD_DIR/LIB_NAME unless the stamp matches."""
-    srcs = _sources()
-    digest = _hash(srcs)
-    lib_path = BUILD_DIR / LIB_NAME
-    stamp = BUILD_DIR / (LIB_NAME + ".sha256")
+def build(verbose_ptxas: bool = False, csrc_dir: Path = CSRC_DIR,
+          build_dir: Path = BUILD_DIR, defines: tuple[str, ...] = ()) -> Path:
+    """Compile csrc_dir/*.cu into build_dir/LIB_NAME unless the stamp
+    matches; ``defines`` are passed to nvcc as -D flags."""
+    csrc_dir, build_dir = Path(csrc_dir), Path(build_dir)
+    srcs = _sources(csrc_dir)
+    flags = [*ARCH_FLAGS, *(f"-D{d}" for d in defines)]
+    digest = _hash(srcs, csrc_dir, flags)
+    lib_path = build_dir / LIB_NAME
+    stamp = build_dir / (LIB_NAME + ".sha256")
     if lib_path.exists() and stamp.exists() and stamp.read_text() == digest:
         BUILD_INFO.update(built=False, seconds=0.0, log="")
         return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{os.getpid()}.tmp"
-    objs = [BUILD_DIR / f".{src.stem}.{tag}.o" for src in srcs]
+    objs = [build_dir / f".{src.stem}.{tag}.o" for src in srcs]
     ptxas = ["-Xptxas", "-v"] if verbose_ptxas else []
     t0 = time.time()
     log = _run_all([
-        [nvcc, *ptxas, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler",
+        [nvcc, *ptxas, *flags, "-std=c++17", "-O3", "-Xcompiler",
          "-fPIC", "-c", str(src), "-o", str(obj)]
         for src, obj in zip(srcs, objs)
     ])
-    tmp = BUILD_DIR / f".{LIB_NAME}.{tag}"
+    tmp = build_dir / f".{LIB_NAME}.{tag}"
     log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
                       *map(str, objs)]])
     for obj in objs:
@@ -112,9 +116,23 @@ def build(verbose_ptxas: bool = False) -> Path:
 def load(verbose_ptxas: bool = False):
     """The ctypes handle of the kernel library (built on first use)."""
     global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(str(build(verbose_ptxas)))
+    if _lib is None:
+        _lib = open_library(build(verbose_ptxas))
+    return _lib
+
+
+def use(lib):
+    """Make the wrappers launch through ``lib`` (an open_library handle, for
+    example of another checkout's sources); returns the one it replaces."""
+    global _lib
+    old, _lib = _lib, lib
+    return old
+
+
+def open_library(path: Path):
+    """ctypes handle of a built kernel library with the C entries' types
+    (an entry the library lacks is left out)."""
+    lib = ctypes.CDLL(str(path))
     vp, i = ctypes.c_void_p, ctypes.c_int
     for kind in ("window", "window_scatter"):
         fwd, bwd = (getattr(lib, f"d4gs_{kind}_{d}") for d in ("fwd", "bwd"))
@@ -126,10 +144,30 @@ def load(verbose_ptxas: bool = False):
     lib.d4gs_dense_fwd.restype = i
     lib.d4gs_dense_bwd.argtypes = [vp] * 7 + [i] * 5 + [vp]
     lib.d4gs_dense_bwd.restype = i
+    if hasattr(lib, "d4gs_window_kernel_info"):
+        lib.d4gs_window_kernel_info.argtypes = [i, ctypes.POINTER(i)]
+        lib.d4gs_window_kernel_info.restype = i
     lib.d4gs_error_string.argtypes = [i]
     lib.d4gs_error_string.restype = ctypes.c_char_p
-    _lib = lib
     return lib
+
+
+INFO_KEYS = ("registers", "spill_bytes", "static_smem", "dynamic_smem",
+             "blocks_per_sm")
+
+
+def window_kernel_info(nchan: int) -> dict:
+    """Resources of the window kernel instances a call with ``nchan``
+    channels launches (cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor at 256 threads):
+    {"fwd": {...}, "bwd": {...}} keyed by INFO_KEYS; spill_bytes is the
+    local memory per thread."""
+    out = (ctypes.c_int * 10)()
+    err = load().d4gs_window_kernel_info(nchan, out)
+    if err != 0:
+        raise RuntimeError(f"window kernel info failed: {error_string(err)}")
+    return {d: dict(zip(INFO_KEYS, out[5 * i : 5 * i + 5]))
+            for i, d in enumerate(("fwd", "bwd"))}
 
 
 def error_string(err: int) -> str:

@@ -242,6 +242,42 @@ def composite_window_bwd_plain(dyn, st, counts, tile_ids, accum, tfin, gacc,
     return gdyn, gst
 
 
+WARP_W, WARP_H = 8, 4  # the window kernels' pixel block of one warp
+NWARPS = P // (WARP_W * WARP_H)
+
+
+def warp_of_pixel(device=None):
+    """(P,) the warp of each pixel p = y * TILE + x in the window kernels
+    (csrc/composite_common.cuh::warp_block_pixel): warp w covers the 8x4
+    block (w % 2, w // 2) of the tile."""
+    p = torch.arange(P, device=device)
+    return (p // TILE // WARP_H) * (TILE // WARP_W) + (p % TILE) // WARP_W
+
+
+def warp_reach(dyn, tile_ids, tiles_x):
+    """The window kernels' per-warp cull (csrc/composite_common.cuh::
+    warp_reaches), stated on the CPU; the twins do not use it, they
+    evaluate every pair.
+
+    dyn (T, S, >=6, C) rows [mx, my, a, b, c, r, ...], tile_ids (T,) ->
+    (T, S, NWARPS, C) bool: whether alpha_at's box |px - mx| <= r,
+    |py - my| <= r holds at some pixel centre of warp w's block, tested at
+    the block's centre nearest the mean with the same float32 rounding. A
+    False means every pixel of that warp finds the pair dead."""
+    t = tile_ids.long()
+    w = torch.arange(NWARPS, device=dyn.device)
+    xlo = ((t % tiles_x) * TILE)[:, None] + (w % 2) * WARP_W
+    ylo = ((t // tiles_x) * TILE)[:, None] + (w // 2) * WARP_H
+    xlo = (xlo.float() + 0.5)[:, None, :, None]  # (T, 1, NWARPS, 1)
+    ylo = (ylo.float() + 0.5)[:, None, :, None]
+    mx, my, r = (dyn[:, :, i, None, :] for i in (0, 1, 5))
+    cx = torch.minimum(torch.maximum(torch.floor(mx) + 0.5, xlo),
+                       xlo + (WARP_W - 1))
+    cy = torch.minimum(torch.maximum(torch.floor(my) + 0.5, ylo),
+                       ylo + (WARP_H - 1))
+    return ((cx - mx).abs() <= r) & ((cy - my).abs() <= r)
+
+
 def composite_window_scatter_plain(dyn, st, counts, sids, accum, tfin,
                                    tiles_x, nchan, depth_in_dyn,
                                    return_work=False):
