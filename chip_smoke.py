@@ -8,22 +8,29 @@ together), then:
 
   1. prints the card (nvidia-smi name, power limit), torch / CUDA versions,
      the kernel build time + ptxas register and spill report, and for each
-     window kernel instance (exact at nchan 5 and 11, generic up to 32) its
+     window kernel instance (exact at nchan 5 and 11, generic up to 32) and
+     dense kernel instance (exact at D 4 and 5, generic up to 16) its
      registers, local (spill) bytes, shared memory and most resident blocks
      per SM (cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerMulti-
-     processor; also in the kernels line under "instances");
+     processor; also in the kernels line under "instances"); fails if a
+     dense instance spills;
   2. holds each kernel against its plain twin on random inputs at capacities
      128, 256, 512 and 1024, with an empty row and rows that saturate in
      their first chunk: the window kernels (K1, K2/K3) at S=11, nchan 11
      (the dynamic window) and nchan 5 (the static windows); the dense
-     kernels (K5) at D=4 and D=5 (phase a); the split path (K4, the window
-     kernels at S=1) at nchan 11 and 5 (phase b); then the window kernels
-     on edge_bucket inputs built to break an inexact per-warp cull (means
-     at exactly r from a warp's nearest pixel centre or one ulp beyond,
-     r = 0 and r far beyond the tile, means on warp boundaries, counts
-     that are not multiples of 128, sub-frames stopping at different
-     chunks) at nchan 11 and 5 through K1/K2, K4 and K6, and the generic
-     instance at nchan 3 and 8 (phase_edge);
+     kernels (K5, reading a per-Gaussian table by index) at D=4, D=5 and
+     the generic D=3 and 8, with one Gaussian in several rows, sentinel
+     tails, counts over the capacity and dropped pairs (indexed_case; the
+     backward on the per-slot and on the per-Gaussian gradient, phase a);
+     the split path (K4, the window kernels at S=1) at nchan 11 and 5
+     (phase b); then the window kernels on edge_bucket inputs built to
+     break an inexact per-warp cull (means at exactly r from a warp's
+     nearest pixel centre or one ulp beyond, r = 0 and r far beyond the
+     tile, means on warp boundaries, counts that are not multiples of 128,
+     sub-frames stopping at different chunks) at nchan 11 and 5 through
+     K1/K2, K4 and K6, and the generic instance at nchan 3 and 8
+     (phase_edge); the dense kernels on the same edge cases at D 4, 5 and
+     8 (phase_edge_dense);
   3. drives the port's dynamic train step at the full bench.py shape
      (1280x720, 40k fg + 60k bg Gaussians, S=11, tile cap 1024; the scene,
      batch and tracks drawn from numpy default_rng(0) exactly as bench.py
@@ -41,12 +48,16 @@ together), then:
      whole image and would leave the bg-only branches no gradient). One
      warm-up step, 5 timed steps with counters zeroed (16 window launches
      per direction per step: 4 windows x 4 buckets; 1 dense), a 2-step
-     profile, and one step's recorded inputs: the window kernels on its
-     16 calls and K5 on its static-reg call, held against their twins
-     (first 64 rows of each call) and timed with them; the kernels line
-     reports these times. On the same 16 calls, the share of (warp,
-     Gaussian) iterations the kernels' per-warp cull removes
-     (ops/rasterize.py::warp_reach), printed before the kernels line;
+     profile (which must show the 16 window gathers' backward and none of
+     a dense payload gather), and one step's recorded inputs: the window
+     kernels on its 16 calls (first 64 rows of each) and K5 on its whole
+     static-reg call (per-slot and per-Gaussian gradient), held against
+     their twins and timed with them; the kernels line reports these
+     times, and for K5 also the function's: the table build + forward
+     kernel, the backward kernel + per-Gaussian reduction. On the same 16
+     calls, the share of (warp, Gaussian) iterations the kernels' per-warp
+     cull removes (ops/rasterize.py::warp_reach), printed before the
+     kernels line;
   5. drives the stage-1 step (the static branch alone, stage 'first') at
      the same shape and static batch: one warm-up step, 5 timed steps,
      3 windows x 4 buckets window launches per direction per step, and a
@@ -81,7 +92,9 @@ together), then:
      steps against 4 steps straight, bit for bit.
 
 Bounds count what the run's data needs: of each payload only the slots
-walked before each row's stop chunk, and alpha only for the (pixel,
+walked before each row's stop chunk (for K5: those slots' index entries
+and, once, the table rows they name; its backward writes the per-slot
+gradient of the slots below each count), and alpha only for the (pixel,
 Gaussian) pairs inside alpha_at's box, plus a box test per Gaussian and
 block of 32 pixels (OPS_BOX); each kernel's "bound_ms_every_pair" charges
 alpha to every pair up to the stop chunks instead.
@@ -204,6 +217,28 @@ def cuda_ms(fn, reps):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps):
+    """cuda_ms with the reps calls queued behind a sleeping kernel, so that
+    the card runs their kernels back to back: the device time of fn(),
+    without the gaps in which the card waits for the host's launches
+    (which dominate calls of a few tens of microseconds). The sleep lasts
+    longer than queueing the calls takes (cycles counted at 2 GHz, above
+    the card's clock)."""
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e9 * (2 * reps * host_s + 1e-3)))
     start.record()
     for _ in range(reps):
         fn()
@@ -350,10 +385,12 @@ def edge_bucket(seed, T, S, nchan, cap, tiles_x, n_tiles, dev):
     return t_(dyn), t_(st), t_(counts), t_(ids)
 
 
-def random_dense(seed, T, nchan, cap, tiles_x, dev):
-    """Random dense (K5) inputs: row t holds Gaussians around image tile t,
-    rows [mx, my, a, b, c, op, r, channels]. Row 0 is empty; rows 1-8 hold
-    wide opaque Gaussians and saturate in their first chunk."""
+def random_dense(seed, T, nchan, cap, tiles_x):
+    """Random dense (K5) rows, numpy: row t holds Gaussians around image
+    tile t, (T, 7 + D, cap) rows [mx, my, a, b, c, op, r, channels]. Row 0
+    is empty; rows 1-8 hold wide opaque Gaussians and saturate in their
+    first chunk; rows 9-12 count cap + 100 (over the capacity, which the
+    kernels and twins clamp to)."""
     rng = np.random.default_rng(seed)
     data = np.zeros((T, 7 + nchan, cap), np.float32)
     t = np.arange(T)
@@ -371,9 +408,57 @@ def random_dense(seed, T, nchan, cap, tiles_x, dev):
     counts = rng.integers(1, cap + 1, T).astype(np.int32)
     counts[0] = 0
     counts[1:9] = cap
+    counts[9:13] = cap + 100
     data *= (np.arange(cap)[None] < counts[:, None])[:, None]
-    return (torch.as_tensor(data, device=dev),
-            torch.as_tensor(counts, device=dev))
+    return data, counts
+
+
+def edge_dense(seed, T, nchan, cap, tiles_x):
+    """edge_bucket's rows (S = 1, the last channel its depth row) as dense
+    (K5) rows, numpy: with n_tiles = T its tile ids are a permutation, so
+    sorting the rows by tile id puts image tile t in row t."""
+    dyn, st, counts, ids = (x.cpu().numpy() for x in edge_bucket(
+        seed, T, 1, nchan, cap, tiles_x, T, "cpu"))
+    rows = np.argsort(ids)
+    d = dyn[rows, 0]  # (T, 7, cap) [mx, my, a, b, c, r, depth]
+    data = np.concatenate([d[:, :5], st[rows, :1], d[:, 5:6], st[rows, 1:],
+                           d[:, 6:7]], axis=1)
+    return data, counts[rows]
+
+
+def indexed_case(data, counts, seed, dev, keep_rows=13):
+    """A dense (K5) case (numpy rows (T, 7 + D, cap), counts) in the indexed
+    form on ``dev``: ((table, idx, counts), slot_map). The table holds every
+    slot's row (T * cap rows, padded to Fp columns) and the zero sentinel
+    G; a slot below its row's count names its own row, or, for a quarter
+    of the slots of the rows from ``keep_rows`` on, the row of a random live
+    slot (one Gaussian in several tile rows); slots past the count name the
+    sentinel (sentinel tails). Rows no slot names stay in the table.
+    slot_map lists each table row's slots in order, the sink slot T * cap
+    after them (as a dropped pair names it)."""
+    T, F, cap = data.shape
+    n = T * cap
+    rng = np.random.default_rng(seed)
+    live = np.arange(cap)[None] < np.minimum(counts, cap)[:, None]
+    src = np.arange(n).reshape(T, cap)
+    dup = live & (rng.random((T, cap)) < 0.25)
+    dup[:keep_rows] = False
+    src[dup] = rng.choice(np.flatnonzero(live), int(dup.sum()))
+    idx = np.where(live, src, n).astype(np.int32)
+    Fp = -(-F // 4) * 4
+    table = np.zeros((n + 1, Fp), np.float32)
+    table[:n, :F] = data.transpose(0, 2, 1).reshape(n, F)
+    slots = np.flatnonzero(live)  # in slot order
+    names = src.reshape(-1)[slots]
+    order = np.argsort(names, kind="stable")
+    mult = np.bincount(names, minlength=n)
+    MT = int(mult.max()) + 1  # at least one sink per row
+    first = np.concatenate([[0], np.cumsum(mult)[:-1]])
+    slot_map = np.full((n, MT), n, np.int32)
+    srt = names[order]
+    slot_map[srt, np.arange(len(srt)) - first[srt]] = slots[order]
+    t = lambda x: torch.as_tensor(x, device=dev)
+    return (t(table), t(idx), t(counts)), t(slot_map)
 
 
 def rect_masks(rng, B):
@@ -580,6 +665,78 @@ def compare_case(tr, errs, kind, label, fargs, seed):
 
 
 @torch.no_grad()
+def compare_dense_bwd(tr, ba, slot_map):
+    """K5's backward vs its twin on backward args ``ba``: the per-slot
+    gradient on the rows the kernel writes (the slots below each row's
+    count) and the per-Gaussian gradient
+    (dense_table_grad over ``slot_map``). [(abs, rel to the twin's max
+    |g|)] for each."""
+    _, _, k_bwd, p_bwd = tr._COMPOSITORS["dense"]
+    gk, gp = k_bwd(*ba), p_bwd(*ba)
+    idx, counts = ba[1], ba[2]
+    cap = idx.shape[1]
+    lane = torch.arange(cap, device=idx.device)
+    written = (lane[None] < counts.clamp(max=cap)[:, None]).reshape(-1)
+    out = []
+    for k, p in ((gk[:-1][written], gp[:-1][written]),
+                 (tr.dense_table_grad(gk, slot_map),
+                  tr.dense_table_grad(gp, slot_map))):
+        e = float((k - p).abs().max())
+        out.append((e, e / (float(p.abs().max()) + 1e-30)))
+    return out
+
+
+@torch.no_grad()
+def compare_dense_case(tr, errs, label, case, tiles_x, nchan, seed):
+    """K5's kernels vs twins on one indexed_case, the backward on the
+    twin's forward outputs and random cotangents, per slot and per
+    Gaussian; returns the forward args."""
+    (table, idx, counts), slot_map = case
+    fa = (table, idx, counts, tiles_x, nchan)
+    e, r = compare_fwd(tr, "dense", fa)
+    errs.add("dense_fwd", e, r, FWD_TOL, label)
+    (es, rs), (eg, rg) = compare_dense_bwd(
+        tr, bwd_args_for(tr, "dense", fa, seed), slot_map)
+    errs.add("dense_bwd", es, rs, BWD_TOL, f"{label}, per slot")
+    errs.add("dense_bwd", eg, rg, BWD_TOL, f"{label}, per Gaussian")
+    print(f"# {label} dense: forward max abs err {e:.3e} (rel {r:.3e}), "
+          f"backward per slot {es:.3e} (rel to max |g| {rs:.3e}), per "
+          f"Gaussian {eg:.3e} (rel {rg:.3e})")
+    return fa
+
+
+@torch.no_grad()
+def phase_random_dense(tr, errs, cases):
+    """K5 vs its twins on indexed random_dense cases ((label, nchan, seed,
+    cap)); rows 1-8 must saturate in their first chunk."""
+    for label, nchan, seed, cap in cases:
+        case = indexed_case(*random_dense(seed, 64, nchan, cap, 80), seed,
+                            DEV)
+        fa = compare_dense_case(tr, errs, f"random {label}", case, 80, nchan,
+                                seed)
+        _, tf = tr._COMPOSITORS["dense"][1](*fa)
+        check(float(tf[1:9].max()) < tr.EARLY_STOP_T,
+              f"dense {label}: saturating rows did not saturate")
+    torch.cuda.synchronize()
+
+
+@torch.no_grad()
+def phase_edge_dense(tr, errs):
+    """K5 on edge_dense cases in the indexed form (the per-warp cull's edge
+    cases): D 4 and 5 at caps 128, 512 and 1024, the generic instance at
+    D 8, cap 1024."""
+    for nchan, caps in ((4, (128, 512, 1024)), (5, (128, 512, 1024)),
+                        (8, (1024,))):
+        for i, cap in enumerate(caps):
+            seed = 300 + 10 * nchan + i
+            compare_dense_case(
+                tr, errs, f"edge cap={cap} D={nchan}",
+                indexed_case(*edge_dense(seed, 48, nchan, cap, 80), seed,
+                             DEV), 80, nchan, seed)
+    torch.cuda.synchronize()
+
+
+@torch.no_grad()
 def phase_random(tr, errs, kind, cases):
     """Kernels vs twins on random inputs; ``cases``: (label, fwd args)."""
     for i, (label, fargs) in enumerate(cases):
@@ -704,8 +861,8 @@ def window_geometry(tr, kind, fa):
     tiles_x) of a compositor call's forward inputs ``fa``, as the window
     twin sees them."""
     if kind == "dense":
-        dyn, _, ids = tr._dense_as_window(fa[0], fa[3])
-        return dyn, ids, fa[2]
+        dyn, _, ids = tr._dense_as_window(fa[0], fa[1], fa[4])
+        return dyn, ids, fa[3]
     if kind == "split":
         return fa[0][:, None], fa[3], fa[4]
     if kind == "window_scatter":
@@ -791,8 +948,12 @@ def measure(tr, errs, kind, rec, rates, reps=10):
               f"{e:.3e} (rel {r:.3e}), bwd err {e2:.3e} (rel {r2:.3e})")
     ms = {"fwd": cuda_ms(lambda: [k_fwd(*a) for a in rec["fwd"]], reps),
           "bwd": cuda_ms(lambda: [k_bwd(*a) for a in rec["bwd"]], reps)}
+    dev = {d: device_ms(lambda: [k(*a) for a in rec[d]], 3)
+           for d, k in (("fwd", k_fwd), ("bwd", k_bwd))}
     plain = {"fwd": cuda_ms(lambda: [p_fwd(*a) for a in rec["fwd"]], 1),
              "bwd": cuda_ms(lambda: [p_bwd(*a) for a in rec["bwd"]], 1)}
+    print(f"# {kind} kernels' device time (queued): fwd {dev['fwd']:.4f} "
+          f"ms, bwd {dev['bwd']:.4f} ms")
     sw = StepWork(tr, kind)
     for fa, ba in zip(rec["fwd"], rec["bwd"]):
         n = n_tensors(fa)
@@ -804,7 +965,96 @@ def measure(tr, errs, kind, rec, rates, reps=10):
                             *((g,) if torch.is_tensor(g) else g)))
     bounds = sw.bounds(rates, ms, plain)
     torch.cuda.synchronize()
-    return ms, plain, bounds
+    return ms, plain, bounds, dev
+
+
+@contextlib.contextmanager
+def recording_dense_host(tr):
+    """Record the arguments of K5's host-side parts: the table build
+    (ops/rasterize.py's dense_table) and the per-Gaussian reduction
+    (dense_table_grad). Yields {"table": [...], "grad": [...], "fns": the
+    unwrapped functions}."""
+    rec = {"table": [], "grad": [],
+           "fns": (tr.dense_table, tr.dense_table_grad)}
+
+    def wrap(fn, key):
+        def f(*a):
+            rec[key].append(a)
+            return fn(*a)
+        return f
+
+    tr.dense_table = wrap(rec["fns"][0], "table")
+    tr.dense_table_grad = wrap(rec["fns"][1], "grad")
+    try:
+        yield rec
+    finally:
+        tr.dense_table, tr.dense_table_grad = rec["fns"]
+
+
+def dense_bytes(fa, ba, work):
+    """Bytes K5 must move on a call (forward args ``fa``, backward args
+    ``ba``): the index entries of the slots walked before each row's stop
+    chunk, the table rows they name (once each) and the counts; the forward
+    writes accum and tfin; the backward also reads those and the
+    cotangents and writes the per-slot gradient of the slots below each
+    count. (forward bytes, backward bytes)."""
+    table, idx, counts = fa[:3]
+    cap, Fp = idx.shape[1], table.shape[1]
+    lane = torch.arange(cap, device=idx.device)
+    walked = lane[None] < work["slots"][:, :1]
+    rows = int(torch.unique(idx[walked]).numel())
+    ins = 4 * int(walked.sum()) + 4 * rows * Fp + nbytes(counts)
+    written = int(counts.clamp(max=cap).sum())
+    return (ins + nbytes(*ba[3:5]),
+            ins + nbytes(*ba[3:7]) + 4 * written * Fp)
+
+
+@torch.no_grad()
+def measure_dense(tr, errs, rec, host, rates, reps=10):
+    """measure() for K5 on a step's one static-reg call: kernels vs twins on
+    the whole call (the backward per slot and per Gaussian, through the
+    call's slot map), kernel and twin device times, the function's times
+    (the table build + forward kernel; the backward kernel + per-Gaussian
+    reduction) and each host part's, and the bound (StepWork, dense_bytes).
+    """
+    k_fwd, p_fwd, k_bwd, p_bwd = tr._COMPOSITORS["dense"]
+    (fa,), (ba,) = rec["fwd"], rec["bwd"]
+    (targs,), ((_, slot_map),) = host["table"], host["grad"]
+    table_fn, grad_fn = host["fns"]
+    e, r = compare_fwd(tr, "dense", fa)
+    errs.add("dense_fwd", e, r, FWD_TOL, "real call")
+    (es, rs), (eg, rg) = compare_dense_bwd(tr, ba, slot_map)
+    errs.add("dense_bwd", es, rs, BWD_TOL, "real call, per slot")
+    errs.add("dense_bwd", eg, rg, BWD_TOL, "real call, per Gaussian")
+    print(f"# real dense call {tuple(fa[1].shape)} table "
+          f"{tuple(fa[0].shape)} slot map {tuple(slot_map.shape)}: fwd err "
+          f"{e:.3e} (rel {r:.3e}), bwd per slot {es:.3e} (rel {rs:.3e}), "
+          f"per Gaussian {eg:.3e} (rel {rg:.3e})")
+    ms = {"fwd": cuda_ms(lambda: k_fwd(*fa), reps),
+          "bwd": cuda_ms(lambda: k_bwd(*ba), reps)}
+    dev = {"fwd": device_ms(lambda: k_fwd(*fa), reps),
+           "bwd": device_ms(lambda: k_bwd(*ba), reps)}
+    plain = {"fwd": cuda_ms(lambda: p_fwd(*fa), 1),
+             "bwd": cuda_ms(lambda: p_bwd(*ba), 1)}
+    gslot = k_bwd(*ba)
+    parts = {"table": cuda_ms(lambda: table_fn(*targs), reps),
+             "reduce": cuda_ms(lambda: grad_fn(gslot, slot_map), reps)}
+    fns = {"fwd": lambda: k_fwd(table_fn(*targs), *fa[1:]),
+           "bwd": lambda: grad_fn(k_bwd(*ba), slot_map)}
+    fn_ms = {d: cuda_ms(f, reps) for d, f in fns.items()}
+    fn_dev = {d: device_ms(f, reps) for d, f in fns.items()}
+    acc, tf, work = p_fwd(*fa, return_work=True)
+    sw = StepWork(tr, "dense")
+    sw.add(fa, fa[4], work, *dense_bytes(fa, ba, work))
+    bounds = sw.bounds(rates, ms, plain)
+    print(f"# dense kernels' device time (queued): fwd {dev['fwd']:.4f} ms,"
+          f" bwd {dev['bwd']:.4f} ms")
+    print(f"# dense function: table build + forward kernel {fn_ms['fwd']:.4f}"
+          f" ms (table {parts['table']:.4f}; device {fn_dev['fwd']:.4f}), "
+          f"backward kernel + per-Gaussian reduction {fn_ms['bwd']:.4f} ms "
+          f"(reduction {parts['reduce']:.4f}; device {fn_dev['bwd']:.4f})")
+    torch.cuda.synchronize()
+    return ms, plain, bounds, dev, fn_ms, parts, fn_dev
 
 
 @torch.no_grad()
@@ -843,8 +1093,12 @@ def measure_scatter(tr, errs, rec, rates, reps=10):
               f"{e:.3e} (rel {r:.3e}), bwd err {e2:.3e} (rel {r2:.3e})")
     ms = {"fwd": cuda_ms(lambda: [k_fwd(*a) for a in rec["fwd"]], reps),
           "bwd": cuda_ms(lambda: [k_bwd(*a) for a in rec["bwd"]], reps)}
+    dev = {d: device_ms(lambda: [k(*a) for a in rec[d]], 3)
+           for d, k in (("fwd", k_fwd), ("bwd", k_bwd))}
     plain = {"fwd": cuda_ms(lambda: [p_fwd(*a) for a in rec["fwd"]], 1),
              "bwd": cuda_ms(lambda: [p_bwd(*a) for a in rec["bwd"]], 1)}
+    print(f"# window_scatter kernels' device time (queued): fwd "
+          f"{dev['fwd']:.4f} ms, bwd {dev['bwd']:.4f} ms")
     sw = StepWork(tr, "window_scatter")
     for fa, ba in zip(rec["fwd"], rec["bwd"]):
         acc, tf, work = tr.composite_window_plain(*fa[:4], *fa[6:],
@@ -855,7 +1109,7 @@ def measure_scatter(tr, errs, rec, rates, reps=10):
                ins + 2 * rows + nbytes(*k_bwd(*ba)))
     bounds = sw.bounds(rates, ms, plain)
     torch.cuda.synchronize()
-    return ms, plain, bounds
+    return ms, plain, bounds, dev
 
 
 @contextlib.contextmanager
@@ -941,19 +1195,23 @@ def phase_stage2(tr, errs, rates):
         tr, state, drive, "stage-2 step",
         {"window_fwd": 4 * nb, "window_bwd": 4 * nb, "dense_fwd": 1,
          "dense_bwd": 1})
-    state = phase_profile(state, drive)
-    with recording(tr, "dense") as rec_d, recording(tr, "window") as rec_w:
+    state = phase_profile(state, drive, gathers=4 * nb)
+    with recording(tr, "dense") as rec_d, recording(tr, "window") as rec_w, \
+            recording_dense_host(tr) as rec_h:
         state, _, _ = drive(state)
         torch.cuda.synchronize()
     for kind, rec, n in (("dense", rec_d, 1), ("window", rec_w, 4 * nb)):
         check(len(rec["fwd"]) == n and len(rec["bwd"]) == n,
               f"recorded {len(rec['fwd'])}/{len(rec['bwd'])} {kind} calls, "
               f"expected {n}")
+    check(len(rec_h["table"]) == 1 and len(rec_h["grad"]) == 1,
+          f"recorded {len(rec_h['table'])}/{len(rec_h['grad'])} dense table "
+          f"builds / reductions, expected 1")
     del state
     torch.cuda.empty_cache()
     cull = cull_share(tr, rec_w)
     return (times, launches, measure(tr, errs, "window", rec_w, rates),
-            measure(tr, errs, "dense", rec_d, rates), cull)
+            measure_dense(tr, errs, rec_d, rec_h, rates), cull)
 
 
 def phase_stage1(tr):
@@ -965,7 +1223,7 @@ def phase_stage1(tr):
     state, times, launches = drive_steps(
         tr, state, drive, "stage-1 step",
         {"window_fwd": 3 * nb, "window_bwd": 3 * nb})
-    state = phase_profile(state, drive, top=8)
+    state = phase_profile(state, drive, top=8, gathers=3 * nb)
     del state
     torch.cuda.empty_cache()
     return times, launches
@@ -1314,9 +1572,13 @@ def phase_loop_small(tr):
           "checkpoint + 2 steps == 4 steps straight, bit for bit")
 
 
-def phase_profile(state, drive, steps=2, top=15):
+def phase_profile(state, drive, steps=2, top=15, gathers=None):
     """Device time by kernel and by aten op over `steps` train steps, and
-    the device's busy share of the host wall time (torch.profiler)."""
+    the device's busy share of the host wall time (torch.profiler). The
+    payload gathers' backward (aten::embedding_dense_backward) is printed by
+    index shape; there must be ``gathers`` per step (the window buckets'),
+    and none of the dense (K5) payload's shape (pad_tiles(T), TILE_CAP),
+    which the indexed K5 does not gather."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1358,12 +1620,24 @@ def phase_profile(state, drive, steps=2, top=15):
     for a in sorted(ops, key=lambda a: -getattr(a, attr))[:top]:
         print(f"#   op {getattr(a, attr) / steps / 1e3:9.3f} ms/step "
               f"x{a.count // steps:<5d} {a.key}")
-    # the payload gathers' backward, by gather size (bucket vs dense K5)
+    # the payload gathers' backward, by gather size (the window buckets';
+    # the dense K5 payload is no longer gathered)
+    from deblur4dgs_tpu_torch.ops.tiling import num_tiles, pad_tiles
+    tx, ty = num_tiles((W, H))
+    dense_shape = [pad_tiles(tx * ty), TILE_CAP]
+    n_gathers = 0
     for a in prof.key_averages(group_by_input_shape=True):
         if a.key == "aten::embedding_dense_backward":
             print(f"#   gather backward {getattr(a, attr) / steps / 1e3:9.3f} "
                   f"ms/step x{a.count // steps:<3d} shapes "
                   f"{a.input_shapes[:2]}")
+            n_gathers += a.count // steps
+            check(list(a.input_shapes[1]) != dense_shape,
+                  f"a gather backward of the dense payload's shape "
+                  f"{dense_shape}")
+    if gathers is not None:
+        check(n_gathers == gathers, f"{n_gathers} gather backward calls per "
+              f"step, expected {gathers}")
     return state
 
 
@@ -1526,12 +1800,21 @@ def main():
     for line in info.get("log", "").splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"#   {line.strip()}")
-    # the window kernels' instances: exact at nchan 5 and 11, generic (3)
-    instances = {n: cuda_build.window_kernel_info(n) for n in (5, 11, 3)}
-    for n, info_n in instances.items():
+    # the kernel instances: window exact at nchan 5 and 11, dense exact at
+    # D 4 and 5, each with a generic one (queried at 3)
+    instances = {
+        "window": {n: cuda_build.window_kernel_info(n) for n in (5, 11, 3)},
+        "dense": {n: cuda_build.dense_kernel_info(n) for n in (4, 5, 3)}}
+    for kind, by_n in instances.items():
+        for n, info_n in by_n.items():
+            for d, v in info_n.items():
+                print(f"# {kind}_{d} instance for nchan {n}: " + ", ".join(
+                    f"{k} {x}" for k, x in v.items()))
+    for n, info_n in instances["dense"].items():
         for d, v in info_n.items():
-            print(f"# window_{d} instance for nchan {n}: " + ", ".join(
-                f"{k} {x}" for k, x in v.items()))
+            check(v["spill_bytes"] == 0,
+                  f"dense_{d} instance for nchan {n} spills "
+                  f"{v['spill_bytes']} bytes")
 
     errs = Errs()
     caps = (128, 256, 512, 1024)
@@ -1540,10 +1823,10 @@ def main():
          random_bucket(i + (0 if nchan == 11 else 40), 64, NUM_EXPOSURE,
                        nchan, c, 80, 3600, DEV) + (80, nchan, True))
         for nchan in (11, 5) for i, c in enumerate(caps)])
-    phase_random(tr, errs, "dense", [  # (a)
-        (f"cap={c} D={d}", random_dense(10 * d + i, 64, d, c, 80, DEV)
-         + (80, d))
-        for d in (4, 5) for i, c in enumerate(caps)])
+    phase_random_dense(tr, errs, [  # (a); D 3 and 8: the generic instance
+        (f"cap={c} D={d}", d, 10 * d + i, c)
+        for d in (4, 5, 3, 8)
+        for i, c in enumerate(caps if d in (4, 5) else (128, 1024))])
     split_cases = []  # (b)
     for nchan in (11, 5):
         for i, c in enumerate(caps):
@@ -1555,6 +1838,7 @@ def main():
     phase_random(tr, errs, "split", split_cases)
     phase_random_scatter(tr, errs)
     phase_edge(tr, errs)
+    phase_edge_dense(tr, errs)
 
     dyn_times, dyn_launches, _ = phase_bench(tr, errs, rates)
     s2_times, s2_launches, win, dense, cull = phase_stage2(tr, errs, rates)
@@ -1576,7 +1860,7 @@ def main():
 
     kernels = []
     full = "stage-2 step 1280x720"
-    for kind, (ms, plain, bounds), launches, path, timed_on in (
+    for kind, (ms, plain, bounds, dev, *extra), launches, path, timed_on in (
         ("window", win, s2_launches, f"{full}, {TIMED_STEPS} steps",
          f"{full}, its 16 window calls"),
         ("dense", dense, s2_launches, f"{full}, {TIMED_STEPS} steps",
@@ -1603,16 +1887,25 @@ def main():
                 "max_abs_err": errs.v[k][0],
                 "max_rel_err": errs.v[k][1],
                 "ms": ms[d],
+                "device_ms": dev[d],
                 "plain_ms": plain[d],
                 "bound_ms": bounds[d][0],
                 "bound_by": bounds[d][1],
                 "bound_ms_every_pair": bounds[d][2],
                 "library_ms": None,
             })
-            if kind != "dense":  # the window kernel instances it runs
-                kernels[-1]["instances"] = {
-                    "generic" if n == 3 else f"nchan {n}": v[d]
-                    for n, v in instances.items()}
+            by_n = instances["dense" if kind == "dense" else "window"]
+            kernels[-1]["instances"] = {  # the instances it may run
+                "generic" if n == 3 else f"nchan {n}": v[d]
+                for n, v in by_n.items()}
+            if extra:  # K5: (function ms, host parts' ms, function device)
+                kernels[-1]["function_ms"] = extra[0][d]
+                kernels[-1]["function_device_ms"] = extra[2][d]
+                kernels[-1]["function_of"] = (
+                    "table build + forward kernel" if d == "fwd" else
+                    "backward kernel + per-Gaussian reduction")
+                kernels[-1]["host_ms"] = extra[1]["table" if d == "fwd"
+                                                   else "reduce"]
     print(f"# cull on the stage-2 step's {4 * n_buckets()} window calls: "
           f"keeps {cull['reached']} of {cull['walked']} (warp, Gaussian) "
           f"iterations up to the stop chunks, removes "

@@ -1,12 +1,12 @@
 // Shared device helpers of the tile compositors (window_composite.cu,
 // dense_composite.cu): the constants of the reference's compositing rules,
-// the alpha evaluation, warp sums (plain and transposed), the chunk staging,
-// and the window kernels' warp-to-pixel map and per-warp cull.
+// the alpha evaluation, warp sums (plain and transposed), the warp-to-pixel
+// map and per-warp cull, and the host's per-instance resource query.
 #pragma once
 
 #include <cuda_runtime.h>
 
-// Ablations of the window kernels for timing and for testing the checks,
+// Ablations of the compositor kernels for timing and for testing the checks,
 // 0 (none) unless built with -DD4GS_ABLATE=<n> (scripts/torch_window_ab.py
 // --variants); each changes the kernels' outputs:
 //   1 (nosum)  the backward sums no value over the lanes of a warp;
@@ -59,16 +59,6 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Stage chunk columns [off, off + CHUNK) of `rows` rows of a (rows, cap)
-// slab into shared memory laid out (rows, CHUNK).
-__device__ __forceinline__ void stage(float* dst, const float* src, int rows,
-                                      int cap, int off) {
-  for (int i = threadIdx.x; i < rows * CHUNK; i += P) {
-    const int f = i / CHUNK, g = i % CHUNK;
-    dst[i] = src[(size_t)f * cap + off + g];
-  }
-}
-
 // Centre of pixel p of image tile `tile` on a grid tiles_x tiles wide.
 __device__ __forceinline__ void pixel_centre(int tile, int tiles_x, int p,
                                              float* px, float* py) {
@@ -76,7 +66,7 @@ __device__ __forceinline__ void pixel_centre(int tile, int tiles_x, int p,
   *py = (float)((tile / tiles_x) * TILE) + (float)(p / TILE) + 0.5f;
 }
 
-// The window kernels' pixel-to-warp map: warp w covers the 8x4 pixel block
+// The compositors' pixel-to-warp map: warp w covers the 8x4 pixel block
 // (w & 1, w >> 1) of the tile, lane l its pixel (l & 7, l >> 3). Outputs
 // stay indexed by p = y * TILE + x. ops/rasterize.py::warp_reach states the
 // same map and cull on the CPU.
@@ -151,6 +141,28 @@ __device__ __forceinline__ void warp_sum_transposed(float (&v)[N]) {
     transpose_step<1, 1>(v, lane);
   else
     v[0] += __shfl_xor_sync(FULL_MASK, v[0], 1);
+}
+
+// Registers, local (spill) bytes, static and dynamic shared memory and
+// the most resident blocks per SM of one kernel instance launched with P
+// threads, into out[0..4].
+template <typename K>
+int kernel_info(K kernel, size_t dyn_smem, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn_smem);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, P,
+                                                        dyn_smem);
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = (int)dyn_smem;
+  out[4] = blocks;
+  return (int)err;
 }
 
 }  // namespace d4gs

@@ -540,27 +540,6 @@ int dispatch_bwd(const void* tile_ids, const void* counts, const void* rows,
 #undef D4GS_BWD
 }
 
-// Registers, local (spill) bytes, static and dynamic shared memory and
-// the most resident blocks per SM of one kernel instance, into out[0..4].
-template <typename K>
-int kernel_info(K kernel, size_t dyn_smem, int* out) {
-  cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn_smem);
-  int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, P,
-                                                        dyn_smem);
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = (int)a.sharedSizeBytes;
-  out[3] = (int)dyn_smem;
-  out[4] = blocks;
-  return (int)err;
-}
-
 template <int MAXC, bool EXACT>
 int info_pair(int nchan, int* out) {
   const int err = kernel_info(window_fwd_kernel<MAXC, EXACT>, 0, out);

@@ -140,13 +140,19 @@ def open_library(path: Path):
         fwd.restype = i
         bwd.argtypes = [vp] * 10 + [i] * 8 + [vp]
         bwd.restype = i
-    lib.d4gs_dense_fwd.argtypes = [vp] * 4 + [i] * 5 + [vp]
-    lib.d4gs_dense_fwd.restype = i
-    lib.d4gs_dense_bwd.argtypes = [vp] * 7 + [i] * 5 + [vp]
-    lib.d4gs_dense_bwd.restype = i
-    if hasattr(lib, "d4gs_window_kernel_info"):
-        lib.d4gs_window_kernel_info.argtypes = [i, ctypes.POINTER(i)]
-        lib.d4gs_window_kernel_info.restype = i
+    # The indexed K5 entries (idx, counts, table, ...) come with
+    # d4gs_dense_kernel_info; an older library's dense-layout entries are
+    # left unbound (scripts/torch_window_ab.py binds them for a baseline).
+    if hasattr(lib, "d4gs_dense_kernel_info"):
+        lib.d4gs_dense_fwd.argtypes = [vp] * 5 + [i] * 5 + [vp]
+        lib.d4gs_dense_fwd.restype = i
+        lib.d4gs_dense_bwd.argtypes = [vp] * 8 + [i] * 5 + [vp]
+        lib.d4gs_dense_bwd.restype = i
+    for kind in ("window", "dense"):
+        if hasattr(lib, f"d4gs_{kind}_kernel_info"):
+            fn = getattr(lib, f"d4gs_{kind}_kernel_info")
+            fn.argtypes = [i, ctypes.POINTER(i)]
+            fn.restype = i
     lib.d4gs_error_string.argtypes = [i]
     lib.d4gs_error_string.restype = ctypes.c_char_p
     return lib
@@ -156,18 +162,28 @@ INFO_KEYS = ("registers", "spill_bytes", "static_smem", "dynamic_smem",
              "blocks_per_sm")
 
 
+def _kernel_info(kind: str, nchan: int) -> dict:
+    out = (ctypes.c_int * 10)()
+    err = getattr(load(), f"d4gs_{kind}_kernel_info")(nchan, out)
+    if err != 0:
+        raise RuntimeError(f"{kind} kernel info failed: {error_string(err)}")
+    return {d: dict(zip(INFO_KEYS, out[5 * i : 5 * i + 5]))
+            for i, d in enumerate(("fwd", "bwd"))}
+
+
 def window_kernel_info(nchan: int) -> dict:
     """Resources of the window kernel instances a call with ``nchan``
     channels launches (cudaFuncGetAttributes and
     cudaOccupancyMaxActiveBlocksPerMultiprocessor at 256 threads):
     {"fwd": {...}, "bwd": {...}} keyed by INFO_KEYS; spill_bytes is the
     local memory per thread."""
-    out = (ctypes.c_int * 10)()
-    err = load().d4gs_window_kernel_info(nchan, out)
-    if err != 0:
-        raise RuntimeError(f"window kernel info failed: {error_string(err)}")
-    return {d: dict(zip(INFO_KEYS, out[5 * i : 5 * i + 5]))
-            for i, d in enumerate(("fwd", "bwd"))}
+    return _kernel_info("window", nchan)
+
+
+def dense_kernel_info(nchan: int) -> dict:
+    """window_kernel_info for the dense (K5) instances a call with
+    ``nchan`` channels launches."""
+    return _kernel_info("dense", nchan)
 
 
 def error_string(err: int) -> str:

@@ -21,8 +21,12 @@ Four compositors share that math and one stop rule:
     (T_img + 1, ...) buffer for all buckets (row T_img takes the pad rows);
   * split (K4): one sub-frame of the same layout, (T, Fd, cap); it runs
     the window kernels at S = 1 (K4 is K1/K2 with one sub-frame);
-  * dense (K5): one payload (T, 7+D, cap) per image-tile row, rows
-    [mx, my, a, b, c, op, r, channels], pixel-major outputs.
+  * dense (K5): per image-tile row t, the table rows idx[t, :counts[t]]
+    of one per-Gaussian table (G+1, Fp) with rows [mx, my, a, b, c, op, r,
+    channels] (the reference gathers them into a (T, 7+D, cap) payload
+    first); pixel-major outputs. Its backward writes a gradient per slot
+    and sums each Gaussian's slots through the binning's inverse slot map
+    (dense_table_grad).
 
 Early-stop rule (shared by the CUDA kernels and the plain twins): the
 Gaussians are walked in chunks of CHUNK = 128; before each chunk, the
@@ -45,6 +49,7 @@ import ctypes
 import os
 
 import torch
+import torch.nn.functional as F
 
 from deblur4dgs_tpu_torch.ops.tiling import (
     F_CHANNELS,
@@ -52,8 +57,10 @@ from deblur4dgs_tpu_torch.ops.tiling import (
     F_RADIUS,
     TILE,
     _pad_rows,
+    bin_indexed,
+    dense_row_floats,
+    dense_table,
     num_tiles,
-    pack_and_gather,
 )
 
 ALPHA_CLAMP = 0.999
@@ -328,46 +335,53 @@ def composite_split_bwd_plain(dyn, st, counts, tile_ids, accum, tfin, gacc,
 _DENSE_DYN_ROWS = [0, 1, 2, 3, 4, F_RADIUS]  # -> [mx, my, a, b, c, r]
 
 
-def _dense_as_window(tile_data, nchan):
-    """Dense rows as the window twin's inputs at S = 1: dyn (T, 1, 6, cap),
-    st (T, 1+D, cap) = [op, channels], tile ids = row index."""
-    T = tile_data.shape[0]
-    dyn = tile_data[:, _DENSE_DYN_ROWS][:, None]
-    st = tile_data[:, [F_OPACITY, *range(F_CHANNELS, F_CHANNELS + nchan)]]
-    ids = torch.arange(T, dtype=torch.int32, device=tile_data.device)
-    return dyn, st, ids
+def _dense_as_window(table, idx, nchan):
+    """An indexed dense call as the window twin's inputs at S = 1: the
+    table rows gathered into K5's dense layout, dyn (T, 1, 6, cap), st
+    (T, 1+D, cap) = [op, channels], tile ids = row index."""
+    T = idx.shape[0]
+    rows = table[:, [*_DENSE_DYN_ROWS, F_OPACITY,
+                     *range(F_CHANNELS, F_CHANNELS + nchan)]]
+    data = rows[idx.long()].permute(0, 2, 1)  # (T, 7 + D, cap)
+    dyn = data[:, :6][:, None]
+    ids = torch.arange(T, dtype=torch.int32, device=idx.device)
+    return dyn, data[:, 6:], ids
 
 
-def composite_dense_plain(tile_data, counts, tiles_x, nchan,
+def composite_dense_plain(table, idx, counts, tiles_x, nchan,
                           return_work=False):
     """Plain twin of the dense forward (K5, rasterize.py:160).
 
-    tile_data (T, 7+D, cap), counts (T,) int32 -> accum (T, P, D),
+    table (G+1, Fp), idx (T, cap), counts (T,) int32 -> accum (T, P, D),
     tfin (T, P, 1) (pixel-major, as K5 writes them)."""
-    dyn, st, ids = _dense_as_window(tile_data, nchan)
+    dyn, st, ids = _dense_as_window(table, idx, nchan)
     out = composite_window_plain(dyn, st, counts, ids, tiles_x, nchan, False,
                                  return_work)
     return (out[0][:, 0].transpose(1, 2).contiguous(),
             out[1][:, 0, :, None].contiguous()) + tuple(out[2:])
 
 
-def composite_dense_bwd_plain(tile_data, counts, accum, tfin, gacc, gt,
+def composite_dense_bwd_plain(table, idx, counts, accum, tfin, gacc, gt,
                               tiles_x, nchan):
     """Plain twin of the dense backward (K5, rasterize.py:207-299).
 
-    Returns gdata (T, 7+D, cap) rows [g_mx, g_my, g_a, g_b, g_c, g_op, 0,
-    g_channels]."""
-    dyn, st, ids = _dense_as_window(tile_data, nchan)
+    Returns gslot (T * cap + 1, Fp): per slot t * cap + j the row [g_mx,
+    g_my, g_a, g_b, g_c, g_op, 0, g_channels, 0 ...], zero past the slot's
+    stop chunk and count; the last row is the sink that dropped pairs name
+    (dense_table_grad never reads it)."""
+    dyn, st, ids = _dense_as_window(table, idx, nchan)
     cmaj = lambda x: x.transpose(1, 2)[:, None]  # (T, P, D) -> (T, 1, D, P)
     gdyn, gst = composite_window_bwd_plain(
         dyn, st, counts, ids, cmaj(accum), tfin[:, None, :, 0], cmaj(gacc),
         gt[:, None, :, 0], tiles_x, nchan, False,
     )
-    gdata = torch.zeros_like(tile_data)
-    gdata[:, :F_OPACITY] = gdyn[:, 0, :5]
-    gdata[:, F_OPACITY] = gst[:, 0]
-    gdata[:, F_CHANNELS:] = gst[:, 1:]
-    return gdata
+    T, cap = idx.shape
+    gslot = table.new_zeros((T * cap + 1, table.shape[1]))
+    g = gslot[:-1].view(T, cap, -1)
+    g[..., :F_OPACITY] = gdyn[:, 0, :5].transpose(1, 2)
+    g[..., F_OPACITY] = gst[:, 0]
+    g[..., F_CHANNELS : F_CHANNELS + nchan] = gst[:, 1:].transpose(1, 2)
+    return gslot
 
 
 # ---------------------------------------------------------------------------
@@ -543,50 +557,54 @@ def split_bwd_cuda(dyn, st, counts, tile_ids, accum, tfin, gacc, gt,
     return gdyn[:, 0], gst
 
 
-def _check_dense_inputs(tile_data, counts, nchan):
-    T, F, cap = tile_data.shape
-    if F != F_CHANNELS + nchan:
-        raise ValueError(f"tile_data has {F} rows, expected "
-                         f"{F_CHANNELS + nchan}")
+def _check_dense_inputs(table, idx, counts, nchan):
     if not 1 <= nchan <= MAX_DENSE_CHANNELS:
         raise ValueError(f"nchan {nchan} outside [1, {MAX_DENSE_CHANNELS}]")
+    T, cap = idx.shape
     if cap % CHUNK:
         raise ValueError(f"capacity {cap} is not a multiple of {CHUNK}")
-    _check(tile_data, "tile_data", torch.float32, (T, F, cap),
-           tile_data.device)
-    _check(counts, "counts", torch.int32, (T,), tile_data.device)
-    return T, F, cap
+    Fp = dense_row_floats(nchan)
+    dev = table.device
+    _check(table, "table", torch.float32, (table.shape[0], Fp), dev)
+    if table.data_ptr() % 16:
+        raise ValueError("table rows must be 16-byte aligned (float4 loads)")
+    _check(idx, "idx", torch.int32, (T, cap), dev)
+    _check(counts, "counts", torch.int32, (T,), dev)
+    return T, cap, Fp
 
 
-def dense_fwd_cuda(tile_data, counts, tiles_x, nchan):
+def dense_fwd_cuda(table, idx, counts, tiles_x, nchan):
     """Launch the dense forward kernel (replaces the TPU kernel K5,
-    deblur4dgs_tpu/ops/rasterize.py::_fwd_kernel). accum (T, P, D),
-    tfin (T, P, 1)."""
-    _require_cuda(tile_data)
-    T, F, cap = _check_dense_inputs(tile_data, counts, nchan)
-    accum = tile_data.new_empty((T, P, nchan))
-    tfin = tile_data.new_empty((T, P, 1))
-    _launch(tile_data.device, "dense_fwd", counts, tile_data, accum, tfin,
-            T, F, cap, nchan, tiles_x)
+    deblur4dgs_tpu/ops/rasterize.py::_fwd_kernel) on the table rows idx[t,
+    :counts[t]] of each image-tile row t. accum (T, P, D), tfin (T, P, 1)."""
+    _require_cuda(table)
+    T, cap, Fp = _check_dense_inputs(table, idx, counts, nchan)
+    accum = table.new_empty((T, P, nchan))
+    tfin = table.new_empty((T, P, 1))
+    _launch(table.device, "dense_fwd", idx, counts, table, accum, tfin, T,
+            cap, Fp, nchan, tiles_x)
     LAUNCHES["dense_fwd"] += 1
     return accum, tfin
 
 
-def dense_bwd_cuda(tile_data, counts, accum, tfin, gacc, gt, tiles_x, nchan):
+def dense_bwd_cuda(table, idx, counts, accum, tfin, gacc, gt, tiles_x,
+                   nchan):
     """Launch the dense backward kernel (replaces K5's _bwd_kernel /
-    _bwd_one_tile). gdata (T, 7+D, cap), written whole by the kernel."""
-    _require_cuda(tile_data)
-    T, F, cap = _check_dense_inputs(tile_data, counts, nchan)
-    dev = tile_data.device
+    _bwd_one_tile). gslot (T * cap + 1, Fp) as the twin returns it; the
+    kernel writes the rows of the slots below each count and leaves the
+    others (which no pair names) and the sink row unwritten."""
+    _require_cuda(table)
+    T, cap, Fp = _check_dense_inputs(table, idx, counts, nchan)
+    dev = table.device
     _check(accum, "accum", torch.float32, (T, P, nchan), dev)
     _check(tfin, "tfin", torch.float32, (T, P, 1), dev)
     _check(gacc, "gacc", torch.float32, (T, P, nchan), dev)
     _check(gt, "gt", torch.float32, (T, P, 1), dev)
-    gdata = torch.empty_like(tile_data)
-    _launch(dev, "dense_bwd", counts, tile_data, accum, tfin, gacc, gt,
-            gdata, T, F, cap, nchan, tiles_x)
+    gslot = table.new_empty((T * cap + 1, Fp))
+    _launch(dev, "dense_bwd", idx, counts, table, accum, tfin, gacc, gt,
+            gslot, T, cap, Fp, nchan, tiles_x)
     LAUNCHES["dense_bwd"] += 1
-    return gdata
+    return gslot
 
 
 # name: (forward on CUDA, forward twin, backward on CUDA, backward twin)
@@ -717,10 +735,69 @@ def composite_tiles_split(dyn, st, counts, tile_ids, tiles_x, nchan,
                             nchan, bool(depth_in_dyn))
 
 
+def dense_table_grad(gslot, slot_map):
+    """The table's gradient (G+1, Fp) from the per-slot gradient gslot
+    (T * cap + 1, Fp): row g sums the rows gslot[slot_map[g, j]] in j order,
+    skipping the sink T * cap that dropped pairs name; the sentinel row G
+    gets zero. One embedding_bag (a gather and a sum per bag, no atomics:
+    deterministic). A gather of the sink row for every dropped pair (most of
+    the G x MT entries) and a sum over MT took 1.2 ms on the bench call, the
+    one hot row serializing the gather; the bag skips it."""
+    g = F.embedding_bag(slot_map, gslot, mode="sum",
+                        padding_idx=gslot.shape[0] - 1)
+    return F.pad(g, (0, 0, 0, 1))
+
+
+class _CompositeIndexed(torch.autograd.Function):
+    """The dense compositor (K5) on table rows by index: the kernels on
+    CUDA tensors, the twins on CPU ones; the backward's per-slot gradient is
+    summed per Gaussian by dense_table_grad."""
+
+    @staticmethod
+    def forward(ctx, table, idx, counts, slot_map, tiles_x, nchan):
+        fwd_cuda, fwd_plain, _, _ = _COMPOSITORS["dense"]
+        accum, tfin = (fwd_cuda if table.is_cuda else fwd_plain)(
+            table, idx, counts, tiles_x, nchan)
+        ctx.save_for_backward(table, idx, counts, slot_map, accum, tfin)
+        ctx.cfg = (tiles_x, nchan)
+        return accum, tfin
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gacc, gt):
+        table, idx, counts, slot_map, accum, tfin = ctx.saved_tensors
+        _, _, bwd_cuda, bwd_plain = _COMPOSITORS["dense"]
+        gacc = torch.zeros_like(accum) if gacc is None else gacc.contiguous()
+        gt = torch.zeros_like(tfin) if gt is None else gt.contiguous()
+        gslot = (bwd_cuda if table.is_cuda else bwd_plain)(
+            table, idx, counts, accum, tfin, gacc, gt, *ctx.cfg)
+        return dense_table_grad(gslot, slot_map), None, None, None, None, None
+
+
+def composite_indexed(table, idx, counts, slot_map, tiles_x, nchan):
+    """Indexed dense compositor (K5) with a custom backward: table (G+1, Fp)
+    from tiling.dense_table, idx (T, cap) int32 table rows, counts (T,),
+    slot_map (G, MT) (tiling.IndexedBinning) -> accum (T, P, D), tfin
+    (T, P, 1). Row t is image tile t."""
+    return _CompositeIndexed.apply(table, idx, counts, slot_map, tiles_x,
+                                   nchan)
+
+
 def composite_tiles(tile_data, counts, tiles_x, nchan):
-    """Dense compositor (K5) with a custom backward: (T, 7+D, CAP), (T,)
-    -> accum (T, P, D), tfin (T, P, 1). Row t is image tile t."""
-    return _Composite.apply("dense", 1, tile_data, counts, tiles_x, nchan)
+    """Dense compositor (K5) on the reference's dense payload: (T, 7+D,
+    CAP), (T,) -> accum (T, P, D), tfin (T, P, 1). Row t is image tile t.
+    Runs composite_indexed with every slot as its own table row (identity
+    index)."""
+    T, nf, cap = tile_data.shape
+    n = T * cap
+    table = F.pad(tile_data.transpose(1, 2).reshape(n, nf),
+                  (0, dense_row_floats(nchan) - nf, 0, 1))
+    dev = tile_data.device
+    slot = torch.arange(n, dtype=torch.int32, device=dev)
+    live = torch.arange(cap, device=dev) < counts[:, None]
+    slot_map = torch.where(live.view(n), slot, n)[:, None]
+    return composite_indexed(table, slot.view(T, cap), counts, slot_map,
+                             tiles_x, nchan)
 
 
 # ---------------------------------------------------------------------------
@@ -762,15 +839,17 @@ def rasterize(
     img_wh: tuple[int, int],
     cap: int = 512,
 ):
-    """Full tile rasterization of one view: bin -> composite (K5) -> untile.
+    """Full tile rasterization of one view: bin -> composite (K5, reading
+    the per-Gaussian table by index) -> untile.
 
     Returns (img (H, W, D) with the background blended by the final
-    transmittance, alpha = 1 - T_fin (H, W), binning)."""
+    transmittance, alpha = 1 - T_fin (H, W), binning (IndexedBinning))."""
     nchan = channels.shape[-1]
-    binning = pack_and_gather(proj, opacities, channels, img_wh, cap=cap)
+    binning = bin_indexed(proj, img_wh, cap)
     tiles_x, tiles_y = binning.tiles_xy
-    accum, tfin = composite_tiles(binning.tile_data, binning.counts, tiles_x,
-                                  nchan)
+    accum, tfin = composite_indexed(
+        dense_table(proj, opacities, channels), binning.idx, binning.counts,
+        binning.slot_map, tiles_x, nchan)
     T = tiles_x * tiles_y  # drop TILE_BLOCK padding rows
     img, tf = untile(accum[:T], tfin[:T], img_wh, binning.tiles_xy, nchan)
     img = img + tf[..., None] * background[None, None, :]

@@ -11,13 +11,15 @@ ids, counts, gather indices) equals the reference's exactly:
     which orders pairs exactly like the reference's fused int32 key or its
     two-key fallback.
 
-Layouts. Dense (the compositor K5's input, ``pack_with_binning``): per tile
-row (7+D, cap) rows [mx, my, conic_a, conic_b, conic_c, opacity, radius,
-channels]. Split (the window compositor and K4): dyn rows [mx, my, conic_a,
-conic_b, conic_c, radius (, depth)] per sub-frame and static rows [opacity,
-channels] shared by the window. Slots past a tile's count hold the zero
-sentinel row (index G of the packed tables). Every row gather is
-``F.embedding`` with padding_idx=G (see ``pack_window_fused``).
+Layouts. Dense (the reference compositor K5's input, ``pack_with_binning``):
+per tile row (7+D, cap) rows [mx, my, conic_a, conic_b, conic_c, opacity,
+radius, channels]. Indexed (the port's K5, ``bin_indexed`` + ``dense_table``):
+the same rows once per Gaussian in a (G+1, Fp) table, read through (T, cap)
+tile lists of table rows. Split (the window compositor and K4): dyn rows
+[mx, my, conic_a, conic_b, conic_c, radius (, depth)] per sub-frame and
+static rows [opacity, channels] shared by the window. Slots past a tile's
+count hold the zero sentinel row (index G of the packed tables). Every row
+gather is ``F.embedding`` with padding_idx=G (see ``pack_window_fused``).
 """
 
 from __future__ import annotations
@@ -120,8 +122,9 @@ def _pairs_to_runs(tx0, tx1, ty0, ty1, cx, cy, valid, G, T, tiles_x,
     Each depth-sorted Gaussian emits up to MT (tile, rank) pairs over its
     bounding square's tile span (clipped around its centre tile). Returns
     (rank_sorted (E,), tile_sorted (E,), starts (T+1,), counts (T,),
-    raw (T,)): tile t's depth-ordered list is
-    rank_sorted[starts[t] : starts[t] + raw[t]].
+    raw (T,), perm (E,)): tile t's depth-ordered list is
+    rank_sorted[starts[t] : starts[t] + raw[t]], and sorted pair e is pair
+    perm[e] = rank * MT + j of the (G, MT) expansion.
     """
     dev = tx0.device
     w_span = tx1 - tx0 + 1
@@ -150,7 +153,7 @@ def _pairs_to_runs(tx0, tx1, ty0, ty1, cx, cy, valid, G, T, tiles_x,
     rank = torch.arange(G, dtype=torch.int64, device=dev)[:, None].expand(G, MT)
     rank_bits = int(G).bit_length()
     key = (tile_id.reshape(-1) << rank_bits) | rank.reshape(-1)
-    key_sorted, _ = torch.sort(key)
+    key_sorted, perm = torch.sort(key)
     tile_sorted = key_sorted >> rank_bits
     rank_sorted = key_sorted & ((1 << rank_bits) - 1)
 
@@ -161,7 +164,7 @@ def _pairs_to_runs(tx0, tx1, ty0, ty1, cx, cy, valid, G, T, tiles_x,
     counts = torch.clamp(raw, max=cap)
     i32 = torch.int32
     return (rank_sorted.to(i32), tile_sorted.to(i32), starts.to(i32),
-            counts.to(i32), raw.to(i32))
+            counts.to(i32), raw.to(i32), perm)
 
 
 def _pairs_to_lists(tx0, tx1, ty0, ty1, cx, cy, valid, G, T, tiles_x,
@@ -171,9 +174,12 @@ def _pairs_to_lists(tx0, tx1, ty0, ty1, cx, cy, valid, G, T, tiles_x,
     Scatters each sorted pair to (its tile, its position in the tile's
     run). Pairs past a tile's capacity and pairs of no tile all land on
     the discarded row T (duplicates there are harmless: it is dropped).
-    Returns (gather_idx (T, cap) int32, counts (T,), raw (T,)).
+    Returns (gather_idx (T, cap) int32, counts (T,), raw (T,),
+    slot_of_pair (G, MT) int32): the inverse map, tile * cap + pos for the
+    pair (rank, j) that landed at gather_idx[tile, pos], -1 for a pair
+    that was dropped (no tile, an invalid Gaussian, or pos >= cap).
     """
-    rank_sorted, tile_sorted, _, counts, raw = _pairs_to_runs(
+    rank_sorted, tile_sorted, _, counts, raw, perm = _pairs_to_runs(
         tx0, tx1, ty0, ty1, cx, cy, valid, G, T, tiles_x, tiles_y, MT, cap
     )
     E = tile_sorted.shape[0]
@@ -188,7 +194,10 @@ def _pairs_to_lists(tx0, tx1, ty0, ty1, cx, cy, valid, G, T, tiles_x,
     gather_idx = torch.full(((T + 1) * cap,), G, dtype=torch.int32,
                             device=dev)
     gather_idx[slot] = rank_sorted
-    return gather_idx.view(T + 1, cap)[:T], counts, raw
+    slot_of_pair = torch.empty((G * MT,), dtype=torch.int32, device=dev)
+    slot_of_pair[perm] = torch.where(ok, slot, -1).to(torch.int32)
+    return (gather_idx.view(T + 1, cap)[:T], counts, raw,
+            slot_of_pair.view(G, MT))
 
 
 def bin_gaussians_pairs(
@@ -202,7 +211,8 @@ def bin_gaussians_pairs(
     sort groups them by tile in depth order.
 
     Returns (gather_idx (T, cap) into depth-sorted arrays, counts (T,),
-    raw_counts (T,), order (G,))."""
+    raw_counts (T,), order (G,), slot_of_pair (G, MT) by depth rank; see
+    _pairs_to_lists)."""
     G = proj.depths.shape[0]
     tiles_x, tiles_y = num_tiles(img_wh)
     key = torch.where(proj.valid, proj.depths,
@@ -212,11 +222,11 @@ def bin_gaussians_pairs(
     r = proj.radii[order]
     tx0, tx1 = _tile_of(mx - r, tiles_x), _tile_of(mx + r, tiles_x)
     ty0, ty1 = _tile_of(my - r, tiles_y), _tile_of(my + r, tiles_y)
-    gather_idx, counts, raw = _pairs_to_lists(
+    gather_idx, counts, raw, slot_of_pair = _pairs_to_lists(
         tx0, tx1, ty0, ty1, mx, my, proj.valid[order], G, tiles_x * tiles_y,
         tiles_x, tiles_y, max_tiles_per_gauss, cap,
     )
-    return gather_idx, counts, raw, order
+    return gather_idx, counts, raw, order, slot_of_pair
 
 
 def _union_spans(projs: Projected, img_wh):
@@ -257,7 +267,7 @@ def bin_gaussians_union(
     """Shared binning for an exposure window as dense (T, cap) lists (the
     small-image split path). Returns (gather_idx, counts, raw, order)."""
     args, order = _union_spans(projs, img_wh)
-    return _pairs_to_lists(*args, max_tiles_per_gauss, cap) + (order,)
+    return _pairs_to_lists(*args, max_tiles_per_gauss, cap)[:3] + (order,)
 
 
 def bin_gaussians_union_runs(
@@ -277,7 +287,7 @@ def bin_gaussians_union_runs(
     (int64 permutation, sorted -> original index).
     """
     args, order = _union_spans(projs, img_wh)
-    rank_sorted, _, starts, counts, raw = _pairs_to_runs(
+    rank_sorted, _, starts, counts, raw, _ = _pairs_to_runs(
         *args, max_tiles_per_gauss, cap
     )
     return rank_sorted, starts, counts, raw, order
@@ -407,6 +417,66 @@ def pack_with_binning(
                        gather_idx, order, raw_counts, tiles_xy)
 
 
+class IndexedBinning(NamedTuple):
+    """One view's tile lists as rows of its per-Gaussian table (dense_table),
+    the input of the indexed dense compositor (ops/rasterize.py::
+    composite_indexed)."""
+
+    idx: torch.Tensor  # (Tp, CAP) int32 table rows (Gaussian index; G pads)
+    counts: torch.Tensor  # (Tp,) int32 Gaussians binned (<= CAP)
+    # (G, MT) int32 per Gaussian (its own order): the slot t * CAP + pos of
+    # each of its pairs, Tp * CAP (the per-slot gradient's sink row) where
+    # the pair was dropped
+    slot_map: torch.Tensor
+    gather_idx: torch.Tensor  # (Tp, CAP) int32 into the depth-sorted arrays
+    order: torch.Tensor  # (G,) sort order (sorted -> original index)
+    raw_counts: torch.Tensor  # (Tp,) int32 pre-cap intersection counts
+    tiles_xy: tuple[int, int]
+
+
+def bin_indexed(
+    proj: Projected,
+    img_wh: tuple[int, int],
+    cap: int = 512,
+    max_tiles_per_gauss: int = 32,
+) -> IndexedBinning:
+    """bin_gaussians_pairs with its lists as table rows: idx = order[
+    gather_idx] (the sentinel G stays G), rows padded to TILE_BLOCK, and the
+    inverse slot map by Gaussian. No payload is gathered."""
+    G = proj.depths.shape[0]
+    gather_idx, counts, raw, order, slot_of_pair = bin_gaussians_pairs(
+        proj, img_wh, cap, max_tiles_per_gauss
+    )
+    gather_idx, counts, raw = _pad_lists(gather_idx, counts, raw, G)
+    rows = torch.cat([order, order.new_full((1,), G)])
+    idx = rows[gather_idx.long()].to(torch.int32)
+    sink = gather_idx.numel()
+    slot_map = torch.empty_like(slot_of_pair)
+    slot_map[order] = torch.where(slot_of_pair >= 0, slot_of_pair, sink)
+    return IndexedBinning(idx, counts, slot_map, gather_idx, order, raw,
+                          num_tiles(img_wh))
+
+
+def dense_row_floats(nchan: int) -> int:
+    """Columns of a dense_table row: 7 + nchan rounded up to a multiple of
+    4, so that a row loads as float4s."""
+    return -(-(F_CHANNELS + nchan) // 4) * 4
+
+
+def dense_table(
+    proj: Projected,
+    opacities: torch.Tensor,  # (G,)
+    channels: torch.Tensor,  # (G, D)
+) -> torch.Tensor:
+    """(G+1, Fp) per-Gaussian rows [mx, my, conic_a, conic_b, conic_c,
+    opacity, radius, channels, 0 ...] in the Gaussians' own order (no
+    depth sort), Fp = dense_row_floats(D), and the zero sentinel row G."""
+    D = channels.shape[1]
+    rows = torch.cat([proj.means2d, proj.conics, opacities[:, None],
+                      proj.radii[:, None], channels], dim=-1)
+    return F.pad(rows, (0, dense_row_floats(D) - F_CHANNELS - D, 0, 1))
+
+
 def pack_and_gather(
     proj: Projected,
     opacities: torch.Tensor,  # (G,)
@@ -416,7 +486,7 @@ def pack_and_gather(
 ) -> TileBinning:
     """Full binning of one view (default MT = 32, as the reference calls
     bin_gaussians_pairs) and the dense payload gather."""
-    gather_idx, counts, raw_counts, order = bin_gaussians_pairs(
+    gather_idx, counts, raw_counts, order, _ = bin_gaussians_pairs(
         proj, img_wh, cap
     )
     return pack_with_binning(

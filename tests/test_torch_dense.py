@@ -184,7 +184,8 @@ def test_rasterize_against_reference():
     img, alpha, binning = tr.rasterize(tp, tin[2], tin[3],
                                        torch.as_tensor(bg), (W48, H48),
                                        cap=256)
-    assert binning.tile_data.shape == (16, 11, 256)
+    assert binning.idx.shape == (16, 256)  # table rows by index: no payload
+    assert binning.slot_map.shape == (G, 32)
     np.testing.assert_allclose(img.detach().numpy(), jimg, atol=FWD_ATOL,
                                rtol=0)
     np.testing.assert_allclose(alpha.detach().numpy(), jalpha, atol=FWD_ATOL,

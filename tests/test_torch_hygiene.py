@@ -136,16 +136,17 @@ def test_kernel_wrappers_refuse_cpu_or_mixed_inputs():
     with pytest.raises(ValueError, match="CUDA tensors"):
         tr.window_scatter_bwd_cuda(dyn, st, counts, ids, *shared, *shared,
                                    4, 5, True)
-    data = torch.zeros((8, 11, 128))
+    table = torch.zeros((41, 12))
+    idx = torch.zeros((8, 128), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        tr.dense_fwd_cuda(data, counts, 4, 4)
+        tr.dense_fwd_cuda(table, idx, counts, 4, 4)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        tr.dense_bwd_cuda(data, counts, None, None, None, None, 4, 4)
+        tr.dense_bwd_cuda(table, idx, counts, None, None, None, None, 4, 4)
     with pytest.raises(TypeError):
-        tr._check_dense_inputs(data, counts.long(), 4)
+        tr._check_dense_inputs(table, idx, counts.long(), 4)
     with pytest.raises(ValueError):
-        tr._check_dense_inputs(data, counts, 5)
-    assert tr._check_dense_inputs(data, counts, 4) == (8, 11, 128)
+        tr._check_dense_inputs(table, idx, counts, 9)  # rows of 16 floats
+    assert tr._check_dense_inputs(table, idx, counts, 4) == (8, 128, 12)
     with pytest.raises(TypeError):
         tr._check_window_inputs(dyn, st, counts.long(), ids, 5, True)
     with pytest.raises(ValueError):
