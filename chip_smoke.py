@@ -15,7 +15,8 @@ together), then:
      processor; also in the kernels line under "instances"); fails if a
      dense instance spills;
   2. holds each kernel against its plain twin on random inputs at capacities
-     128, 256, 512 and 1024, with an empty row and rows that saturate in
+     128, 256, 512 and 1024 (K5 also at the pipeline's 2048 and 4096, at
+     D 3, 4 and 5), with an empty row and rows that saturate in
      their first chunk: the window kernels (K1, K2/K3) at S=11, nchan 11
      (the dynamic window) and nchan 5 (the static windows); the dense
      kernels (K5, reading a per-Gaussian table by index) at D=4, D=5 and
@@ -30,7 +31,7 @@ together), then:
      sub-frames stopping at different chunks) at nchan 11 and 5 through
      K1/K2, K4 and K6, and the generic instance at nchan 3 and 8
      (phase_edge); the dense kernels on the same edge cases at D 4, 5 and
-     8 (phase_edge_dense);
+     8, and at caps 2048 and 4096 at D 3, 4 and 5 (phase_edge_dense);
   3. drives the port's dynamic train step at the full bench.py shape
      (1280x720, 40k fg + 60k bg Gaussians, S=11, tile cap 1024; the scene,
      batch and tracks drawn from numpy default_rng(0) exactly as bench.py
@@ -89,7 +90,24 @@ together), then:
   9. the 128x128 stage-2 loop with a densify event on the card and on the
      CPU (losses within 1e-5, equal alive masks), and on the card, under
      torch.use_deterministic_algorithms, 2 steps + checkpoint + load + 2
-     steps against 4 steps straight, bit for bit.
+     steps against 4 steps straight, bit for bit;
+ 10. the validator's pose refinement of a 64x48 seeded scene, 50
+     iterations on the card (K5) and on the CPU from the same perturbed
+     camera, for two perturbations: every iteration's loss and the
+     refined w2c (phase_pose_small_vs_cpu);
+ 11. the evaluation path at full width (phase_eval): the port's synthetic
+     1280x720 dataset (make_scene at the bench's 40k fg + 60k bg, 6
+     frames, generate_dataset with 11 blur samples through K5), the
+     ground-truth SceneModel, and two val frames validated with cap 1024
+     and S=11: validate_frame at the true pose, and
+     validate_frame_with_pose_opt for the reference's 500 iterations from
+     a perturbed camera (POSE_ROT_Y, POSE_SHIFT) with the port's
+     torch-seeded LPIPS; exact K5 launch counts, falling losses, a
+     refined PSNR above the start's, finite metrics; K5 (D=3, the generic
+     instance) held against its twin and timed on the refinement's first
+     call; ms per iteration (CUDA events between the renders), and
+     PROF_ITERS iterations under the profiler (20 less 10). Its numbers
+     go to a {"eval": {...}} line.
 
 Bounds count what the run's data needs: of each payload only the slots
 walked before each row's stop chunk (for K5: those slots' index entries
@@ -99,8 +117,9 @@ Gaussian) pairs inside alpha_at's box, plus a box test per Gaussian and
 block of 32 pixels (OPS_BOX); each kernel's "bound_ms_every_pair" charges
 alpha to every pair up to the stop chunks instead.
 
-Prints a {"kernels": [...]} JSON line, the step times, the card line, and
-last {"ok": true, "device": {...}}. Any failed check raises (exit != 0).
+Prints a {"kernels": [...]} JSON line, the step times, an {"eval": ...}
+JSON line, the card line, and last {"ok": true, "device": {...}}. Any
+failed check raises (exit != 0).
 Exits non-zero without a result when no CUDA card is visible or when the
 package is not next to this file. Imports no JAX.
 """
@@ -134,6 +153,17 @@ DEV = "cuda"
 # terms in another order; gst summed over S in another order).
 FWD_TOL = 2e-4  # max |kernel - twin| / max(1, max |twin|)
 BWD_TOL = 2e-3  # max |kernel - twin| / max |twin|
+# The 64x48 pose refinement on the card vs the CPU (phase_pose_small_vs_cpu):
+# the losses agree to float32 reassociation until Adam's normalised steps
+# carry the renders' differences into the pose; near the minimum (a loss of
+# ~3.5e-4 from ~2.5e-2) the relative difference grows, so the bar over all
+# iterations is absolute. NVIDIA H100 80GB HBM3, 700 W, the same on three
+# runs in one call: relative 6.4e-7 / 1.0e-6 at iteration 9, absolute at
+# most 1.85e-5 / 3.5e-6 over 50, refined w2c 2.9e-5 / 5.5e-6 apart (the
+# two starts of POSE_SMALL_OFFSETS).
+POSE_LOSS_REL_EARLY = 1e-5  # per-iteration loss, relative, iterations 0-9
+POSE_LOSS_ABS = 5e-5  # per-iteration loss, absolute, all iterations
+POSE_W2C_ATOL = 1e-4  # refined w2c
 # Card rates for bounds (NVIDIA data sheets; dense FP32 outside the tensor
 # cores, HBM bandwidth), keyed by a substring of the nvidia-smi name.
 CARD_RATES = {  # name key: (bytes/s, fp32 flop/s)
@@ -178,6 +208,11 @@ KERNEL_INFO = {
                            "window_composite.cu",
                            "window_bwd_kernel with the row map"),
 }
+# The pipeline's tile capacities beyond the bench's 1024: the quality
+# runs' tile_cap (scripts/tpu_quality_regression.py:238) and phase A's
+# min(4 * tile_cap, 4096) (pipeline.py:163-167), which the validator and
+# the sharp renders inherit.
+BIG_CAPS = (2048, 4096)
 SCATTER_T_IMG = 256  # image tiles of the random K6 cases' shared buffer
 LIFE_BASES = 10  # the lifecycle phase's motion bases (pipeline default)
 LIFE_START = 72  # its loop's first step (see phase_lifecycle)
@@ -723,10 +758,12 @@ def phase_random_dense(tr, errs, cases):
 @torch.no_grad()
 def phase_edge_dense(tr, errs):
     """K5 on edge_dense cases in the indexed form (the per-warp cull's edge
-    cases): D 4 and 5 at caps 128, 512 and 1024, the generic instance at
-    D 8, cap 1024."""
-    for nchan, caps in ((4, (128, 512, 1024)), (5, (128, 512, 1024)),
-                        (8, (1024,))):
+    cases): D 4 and 5 at caps 128, 512, 1024 and the pipeline's 2048 and
+    4096, the generic instance at D 3 (the validator's RGB renders) at
+    2048 and 4096 and at D 8, cap 1024."""
+    for nchan, caps in ((4, (128, 512, 1024) + BIG_CAPS),
+                        (5, (128, 512, 1024) + BIG_CAPS), (8, (1024,)),
+                        (3, BIG_CAPS)):
         for i, cap in enumerate(caps):
             seed = 300 + 10 * nchan + i
             compare_dense_case(
@@ -836,15 +873,17 @@ def phase_edge(tr, errs):
 
 
 @contextlib.contextmanager
-def recording(tr, kind):
-    """Record the arguments of every kernel call of ``kind`` (the launches
-    still count: they are the driven path's own)."""
+def recording(tr, kind, first=None):
+    """Record the arguments of every kernel call of ``kind``, or of the
+    ``first`` ones of each direction (the launches still count: they are
+    the driven path's own)."""
     rec = {"fwd": [], "bwd": []}
     orig = tr._COMPOSITORS[kind]
 
     def wrap(fn, key):
         def f(*a):
-            rec[key].append(a)
+            if first is None or len(rec[key]) < first:
+                rec[key].append(a)
             return fn(*a)
         return f
 
@@ -969,17 +1008,18 @@ def measure(tr, errs, kind, rec, rates, reps=10):
 
 
 @contextlib.contextmanager
-def recording_dense_host(tr):
+def recording_dense_host(tr, first=None):
     """Record the arguments of K5's host-side parts: the table build
     (ops/rasterize.py's dense_table) and the per-Gaussian reduction
-    (dense_table_grad). Yields {"table": [...], "grad": [...], "fns": the
-    unwrapped functions}."""
+    (dense_table_grad), of every call or of the ``first`` ones. Yields
+    {"table": [...], "grad": [...], "fns": the unwrapped functions}."""
     rec = {"table": [], "grad": [],
            "fns": (tr.dense_table, tr.dense_table_grad)}
 
     def wrap(fn, key):
         def f(*a):
-            rec[key].append(a)
+            if first is None or len(rec[key]) < first:
+                rec[key].append(a)
             return fn(*a)
         return f
 
@@ -1572,28 +1612,22 @@ def phase_loop_small(tr):
           "checkpoint + 2 steps == 4 steps straight, bit for bit")
 
 
-def phase_profile(state, drive, steps=2, top=15, gathers=None):
-    """Device time by kernel and by aten op over `steps` train steps, and
-    the device's busy share of the host wall time (torch.profiler). The
-    payload gathers' backward (aten::embedding_dense_backward) is printed by
-    index shape; there must be ``gathers`` per step (the window buckets'),
-    and none of the dense (K5) payload's shape (pad_tiles(T), TILE_CAP),
-    which the indexed K5 does not gather."""
+def profile_run(run):
+    """run() under torch.profiler: (profile, its device events, host wall
+    us, device busy us: the union of the kernels' time spans)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         t0 = time.time()
-        for _ in range(steps):
-            state, _, _ = drive(state)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        print("# profiler: no device events recorded")
-        return state
+        return prof, kernels, wall_us, None
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0, *spans[0]
     for s_, e_ in spans[1:]:
@@ -1603,15 +1637,44 @@ def phase_profile(state, drive, steps=2, top=15, gathers=None):
         else:
             cur_e = max(cur_e, e_)
     busy += cur_e - cur_s
+    return prof, kernels, wall_us, busy
+
+
+def top_kernels(kernels, steps, top, minus=()):
+    """The `top` kernels by device time per step over `steps` steps; the
+    events of `minus` (a shorter run of the same work) are taken off."""
     by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
+    for sign, evs in ((1, kernels), (-1, minus)):
+        for e in evs:
+            by_name[e.name] = (by_name.get(e.name, 0)
+                               + sign * e.time_range.elapsed_us())
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"#   kernel {us / steps / 1e3:9.3f} ms/step  {name[:90]}")
+
+
+def phase_profile(state, drive, steps=2, top=15, gathers=None):
+    """Device time by kernel and by aten op over `steps` train steps, and
+    the device's busy share of the host wall time (torch.profiler). The
+    payload gathers' backward (aten::embedding_dense_backward) is printed by
+    index shape; there must be ``gathers`` per step (the window buckets'),
+    and none of the dense (K5) payload's shape (pad_tiles(T), TILE_CAP),
+    which the indexed K5 does not gather."""
+    out = [state]
+
+    def run():
+        for _ in range(steps):
+            out[0], _, _ = drive(out[0])
+
+    prof, kernels, wall_us, busy = profile_run(run)
+    state = out[0]
+    if not kernels:
+        print("# profiler: no device events recorded")
+        return state
     print(f"# profile over {steps} steps: wall {wall_us / steps / 1e3:.3f} "
           f"ms/step, device busy {busy / steps / 1e3:.3f} ms/step "
           f"(idle share {1 - busy / wall_us:.3f}), {len(kernels) / steps:.0f} "
           f"kernels/step")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
-        print(f"#   kernel {us / steps / 1e3:9.3f} ms/step  {name[:90]}")
+    top_kernels(kernels, steps, top)
     attr = ("self_device_time_total" if hasattr(
         prof.key_averages()[0], "self_device_time_total")
         else "self_cuda_time_total")
@@ -1766,6 +1829,329 @@ def phase_small_vs_cpu(tr, errs, rates, wh=(128, 128), kind="dynamic",
     return launches
 
 
+# The evaluation path (phase_eval): the synthetic 720p scene of the JAX
+# package's own smoke (scripts/tpu_720p_smoke.py:36-42) at the bench's
+# Gaussian counts, and the validator's reference settings.
+EVAL_FRAMES = 6
+EVAL_VAL = (2, 3)  # the val frames validated (inner frames: deltaT > 0)
+POSE_ITERS = 500  # the validator's refinement (validator.py:437)
+# The perturbed start of the refinement: w2c_bad = [Ry(0.01 rad) | t] @ w2c
+# with t = (0.02, -0.015, 0) in scene units (the camera sits 2.5 from the
+# scene, so roughly 9 and 7 px of shift at 720p, and 11.5 px of rotation).
+POSE_ROT_Y = 0.01
+POSE_SHIFT = (0.02, -0.015, 0.0)
+POSE_SMALL_ITERS = 50  # phase_pose_small_vs_cpu
+PROF_ITERS = 10  # phase_eval: profiled iterations
+# Its two perturbed starts: (axis-angle in radians, shift), the second
+# about another axis with the shift in all three directions.
+POSE_SMALL_OFFSETS = (((0.0, POSE_ROT_Y, 0.0), POSE_SHIFT),
+                      ((-0.015, 0.0, 0.005), (-0.01, 0.02, 0.01)))
+
+
+def perturbed(w2c, rot=(0.0, POSE_ROT_Y, 0.0), shift=POSE_SHIFT):
+    """[exp(rot) | shift] @ w2c, rot an axis-angle in radians."""
+    from deblur4dgs_tpu_torch.ops import lie
+
+    w = torch.as_tensor(w2c, dtype=torch.float32)
+    delta = lie.rt_to_mat4(lie.so3_exp(torch.tensor(rot)),
+                           torch.tensor(shift))
+    return (delta @ w).numpy()
+
+
+@contextlib.contextmanager
+def render_events(V):
+    """A CUDA event recorded as each render of the validator module
+    starts: a pose-refinement iteration spans from its render to the
+    next one's (the last to the final render)."""
+    events, orig = [], V.render
+
+    def timed(*a, **k):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        return orig(*a, **k)
+
+    V.render = timed
+    try:
+        yield events
+    finally:
+        V.render = orig
+
+
+def phase_pose_small_vs_cpu(tr):
+    """The pose refinement of the 64x48 seeded scene of small_inputs (sparse
+    Gaussians before a white background) for POSE_SMALL_ITERS iterations
+    on the card (K5) and on the CPU (the twins) from the same perturbed
+    identity camera, against the CPU's render at that camera, for each of
+    POSE_SMALL_OFFSETS: each iteration's loss and the refined w2c. Adam
+    normalises the gradients, so float32 differences of the renders carry
+    into the steps and the agreement loosens over the iterations; the
+    per-iteration differences are printed."""
+    from deblur4dgs_tpu_torch.convert import scene_from_numpy
+    from deblur4dgs_tpu_torch.eval import validator as V
+
+    wh, t = (64, 48), 3
+    kw = dict(num_exposure=NUM_EXPOSURE, cap=512)
+    arrays, _ = small_inputs(wh, "dynamic")
+    f = 110.0 * wh[0] / 128  # small_inputs' intrinsics
+    K = np.array([[f, 0, wh[0] / 2], [0, f, wh[1] / 2], [0, 0, 1]],
+                 np.float32)
+    w2c = np.eye(4, dtype=np.float32)
+    with torch.no_grad():
+        gt_cpu = V.render(scene_from_numpy(arrays, device="cpu"), t,
+                          torch.as_tensor(w2c), torch.as_tensor(K), wh,
+                          mode="mid", **kw)["img"].numpy()
+    pose_opt = V.make_pose_opt_fn(wh, num_iters=POSE_SMALL_ITERS, **kw)
+    want = {"dense_fwd": POSE_SMALL_ITERS + 1, "dense_bwd": POSE_SMALL_ITERS}
+    every = (0, 9, 19, 29, 39, 49)
+    out = []
+    for n, (rot, shift) in enumerate(POSE_SMALL_OFFSETS):
+        label = f"pose 64x48 start {n} (rot {rot}, shift {shift})"
+        res, launches = {}, None
+        for dev in (DEV, "cpu"):
+            model = scene_from_numpy(arrays, device=dev)
+            if dev == DEV:
+                zero_launches(tr)
+            img, w2c_t, losses = pose_opt(
+                model, t, perturbed(w2c, rot, shift), K, gt_cpu)
+            if dev == DEV:
+                torch.cuda.synchronize()
+                launches = dict(tr.LAUNCHES)
+            res[dev] = (losses.cpu().numpy(), w2c_t.cpu().numpy(),
+                        img.cpu().numpy())
+        for k in tr.LAUNCHES:
+            check(launches[k] == want.get(k, 0),
+                  f"{label}: {k} launched {launches[k]} times, expected "
+                  f"{want.get(k, 0)}")
+        (lc, wc, ic), (lp, wp, ip) = res[DEV], res["cpu"]
+        gap = np.abs(lc - lp)
+        rel = gap / np.abs(lp)
+        check(np.all(np.isfinite(lc)) and lc[-1] < 0.5 * lc[0],
+              f"{label} on the card: losses {lc[0]} -> {lc[-1]}")
+        w2c_err = float(np.abs(wc - wp).max())
+        img_err = float(np.abs(ic - ip).max())
+        firsts = {f"{b:.0e}": int(np.argmax(rel > b)) if (rel > b).any()
+                  else None for b in (1e-6, 1e-5, 1e-4)}
+        print(f"# {label}, card vs CPU over {POSE_SMALL_ITERS} iterations: "
+              f"loss {lp[0]:.6f} -> {lp[-1]:.6f} (least {lp.min():.6f}); "
+              f"loss abs diff max {gap.max():.3e}; rel diff max "
+              f"{rel.max():.3e}, at iterations {list(every)} "
+              f"{[float(f'{rel[i]:.3e}') for i in every]}; first iteration "
+              f"over 1e-6/1e-5/1e-4: {firsts}; refined w2c max abs diff "
+              f"{w2c_err:.3e}, image {img_err:.3e}; launches {launches}")
+        check(rel[:10].max() <= POSE_LOSS_REL_EARLY, f"{label} card vs CPU: "
+              f"loss rel diff {rel[:10].max():.3e} in the first 10 "
+              f"iterations, over {POSE_LOSS_REL_EARLY}")
+        check(gap.max() <= POSE_LOSS_ABS, f"{label} card vs CPU: loss abs "
+              f"diff {gap.max():.3e} over {POSE_LOSS_ABS}")
+        check(w2c_err <= POSE_W2C_ATOL, f"{label} card vs CPU: w2c diff "
+              f"{w2c_err:.3e} over {POSE_W2C_ATOL}")
+        out.append({"rot": list(rot), "shift": list(shift),
+                    "loss_first": float(lp[0]), "loss_last": float(lp[-1]),
+                    "loss_abs_max": float(gap.max()),
+                    "loss_rel_max": float(rel.max()),
+                    "loss_rel_at": {i: float(rel[i]) for i in every},
+                    "first_iter_over": firsts, "w2c_max_abs": w2c_err,
+                    "img_max_abs": img_err})
+    return {"iters": POSE_SMALL_ITERS, "starts": out}
+
+
+def phase_eval(tr, errs, rates, card):
+    """The evaluation path at full width: the port's synthetic 720p dataset
+    rendered through K5 (100k Gaussians, S=11 blur samples, D=5: RGB, mask,
+    depth), the ground-truth SceneModel, and two val frames validated with
+    the validator's settings (cap 1024, S=11): validate_frame at the true
+    pose and validate_frame_with_pose_opt for POSE_ITERS iterations from a
+    perturbed camera (D=3: the generic K5 instance), with the port's
+    torch-seeded LPIPS. Checks the launch counts, the losses, the PSNRs and
+    the metrics; holds K5 against its twin on the refinement's first call
+    and times it; profiles PROF_ITERS iterations."""
+    from deblur4dgs_tpu_torch.data import synthetic as S
+    from deblur4dgs_tpu_torch.eval import lpips as LP
+    from deblur4dgs_tpu_torch.eval import metrics as M
+    from deblur4dgs_tpu_torch.eval import validator as V
+
+    kw = dict(num_exposure=NUM_EXPOSURE, cap=TILE_CAP)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    scene = S.make_scene(seed=0, num_fg=NUM_FG, num_bg=NUM_BG,
+                         num_frames=EVAL_FRAMES, img_wh=(W, H), exposure=0.45,
+                         cam_shake=0.02, exp_shake=0.015, device=DEV)
+    zero_launches(tr)
+    data = S.generate_dataset(scene, num_blur_samples=NUM_EXPOSURE,
+                              num_tracks=128, fast_renderer=True)
+    torch.cuda.synchronize()
+    gen_s = time.time() - t0
+    gen_launches = dict(tr.LAUNCHES)
+    # per frame: S blur renders, the sharp render, the mask + depth render
+    want = EVAL_FRAMES * (NUM_EXPOSURE + 2)
+    for k in tr.LAUNCHES:
+        check(gen_launches[k] == (want if k == "dense_fwd" else 0),
+              f"dataset generation: {k} launched {gen_launches[k]} times")
+    check(data.imgs.shape == (EVAL_FRAMES, H, W, 3)
+          and all(np.isfinite(getattr(data, f)).all()
+                  for f in ("imgs", "sharp_imgs", "depths", "tracks_2d")),
+          "dataset: shapes or non-finite values")
+    fg_share = float(data.masks.mean())
+    check(0.0 < fg_share < 1.0, f"dataset: fg share {fg_share}")
+    print(f"# eval dataset {W}x{H} ({NUM_FG} fg + {scene.bg.capacity} bg "
+          f"Gaussians, {EVAL_FRAMES} frames x {NUM_EXPOSURE} blur samples): "
+          f"{gen_s:.3f} s incl. scene; fg share {fg_share:.4f}; launches "
+          f"{gen_launches}")
+
+    model = S.gt_scene_model(scene)
+    val = S.SyntheticSceneAdapter(scene, data, split="val")
+    lp = LP.init_lpips(torch.Generator().manual_seed(0), device=DEV)
+
+    def lpips_fn(a, b):
+        return LP.lpips(lp, a[None], b[None]).mean()
+
+    with torch.no_grad():
+        x = torch.as_tensor(val.get_item(EVAL_VAL[0])["imgs"], device=DEV)
+        lpips_self = float(lpips_fn(x, x))
+    check(lpips_self == 0.0, f"LPIPS of an image against itself {lpips_self}")
+
+    # The true pose re-renders the val frame's ground truth (the model IS
+    # the ground truth), so its PSNR is infinite or near it; the refined
+    # frames are scored by a second validator, whose metrics are finite.
+    v_true = V.Validator(model, save_dir=None, lpips_fn=lpips_fn)
+    v = V.Validator(model, save_dir=None, lpips_fn=lpips_fn)
+    pose_opt = V.make_pose_opt_fn((W, H), num_iters=POSE_ITERS, **kw)
+    frames, iter_ms = [], []
+    rec = host = None
+    for n, i in enumerate(EVAL_VAL):
+        item = val.get_item(i)
+        t, gt = item["ts"], item["imgs"]
+        bad = perturbed(item["w2cs"])
+        gt_dev = torch.as_tensor(gt, device=DEV)
+        torch.cuda.synchronize()
+        zero_launches(tr)
+        v_true.validate_frame(t, item["w2cs"], item["Ks"], gt,
+                              item["masks"], item["valid_masks"], (W, H),
+                              **kw)
+        with torch.no_grad():
+            start = V.render(model, t, torch.as_tensor(bad, device=DEV),
+                             torch.as_tensor(item["Ks"], device=DEV), (W, H),
+                             mode="mid", **kw)["img"]
+        psnr_start = M.compute_psnr(start, gt_dev)
+        with contextlib.ExitStack() as stack:
+            if n == 0:  # K5's first call of the refinement, both directions
+                rec = stack.enter_context(recording(tr, "dense", first=1))
+                host = stack.enter_context(recording_dense_host(tr, first=1))
+            events = stack.enter_context(render_events(V))
+            t1 = time.time()
+            img, w2c_t, losses = v.validate_frame_with_pose_opt(
+                pose_opt, t, bad, item["Ks"], gt, item["masks"],
+                item["valid_masks"])
+            torch.cuda.synchronize()
+            pose_s = time.time() - t1
+        launches = dict(tr.LAUNCHES)
+        # validate_frame, the perturbed start, the iterations, the final
+        want = {"dense_fwd": 1 + 1 + POSE_ITERS + 1, "dense_bwd": POSE_ITERS}
+        for k in tr.LAUNCHES:
+            check(launches[k] == want.get(k, 0),
+                  f"eval frame {i}: {k} launched {launches[k]} times, "
+                  f"expected {want.get(k, 0)}")
+        check(len(events) == POSE_ITERS + 1, f"{len(events)} pose renders")
+        ms = [a.elapsed_time(b) for a, b in zip(events[:-1], events[1:])]
+        iter_ms.append(ms)
+        losses = losses.cpu().numpy()
+        psnr_ref = M.compute_psnr(img, gt_dev)
+        print(f"# eval frame {i}: losses every 25 iterations "
+              f"{[float(f'{x:.6f}') for x in losses[::25]]}")
+        check(np.all(np.isfinite(losses)), f"eval frame {i}: loss not finite")
+        check(losses[-1] < losses[0], f"eval frame {i}: loss {losses[0]} -> "
+              f"{losses[-1]}")
+        check(psnr_ref > psnr_start, f"eval frame {i}: PSNR {psnr_start} -> "
+              f"{psnr_ref}")
+        frames.append({
+            "t": int(t), "loss_first": float(losses[0]),
+            "loss_last": float(losses[-1]),
+            "loss_ratio": float(losses[-1] / losses[0]),
+            "psnr_start": psnr_start, "psnr_refined": psnr_ref,
+            "pose_s": pose_s, "ms_per_iter_median": statistics.median(ms),
+            "w2c_refined": w2c_t.cpu().numpy().round(6).tolist(),
+            "launches": launches})
+        print(f"# eval frame {i}: loss {losses[0]:.6f} -> {losses[-1]:.6f} "
+              f"(ratio {losses[-1] / losses[0]:.4f}), PSNR {psnr_start:.3f}"
+              f" -> {psnr_ref:.3f} dB; {POSE_ITERS} iterations in "
+              f"{pose_s:.3f} s, median {statistics.median(ms):.3f} ms/iter "
+              f"(min {min(ms):.3f}, max {max(ms):.3f}); launches {launches}")
+    metrics, metrics_true = v.compute(), v_true.compute()
+    check(all(np.isfinite(x) for x in metrics.values()),
+          f"validator metrics of the refined frames not finite: {metrics}")
+    check(not any(np.isnan(x) for x in metrics_true.values())
+          and metrics_true["val/psnr"] > 60.0,
+          f"the true pose does not reproduce the ground truth: "
+          f"{metrics_true}")
+    print(f"# eval metrics over {len(EVAL_VAL)} frames: refined {metrics}; "
+          f"at the true pose {metrics_true}")
+
+    check(len(rec["fwd"]) == 1 and len(rec["bwd"]) == 1
+          and len(host["table"]) == 1 and len(host["grad"]) == 1,
+          "the refinement's first K5 call was not recorded (forward, "
+          "backward, table build, reduction: "
+          f"{[len(rec['fwd']), len(rec['bwd'])]}, "
+          f"{[len(host['table']), len(host['grad'])]})")
+    check(rec["fwd"][0][4] == 3, f"the refinement's K5 call has D = "
+          f"{rec['fwd'][0][4]}, expected 3")
+    ms, plain, bounds, dev, fn_ms, parts, fn_dev = measure_dense(
+        tr, errs, rec, host, rates)
+    k5 = {d: {"ms": ms[d], "device_ms": dev[d], "plain_ms": plain[d],
+              "bound_ms": bounds[d][0], "bound_by": bounds[d][1],
+              "function_ms": fn_ms[d], "function_device_ms": fn_dev[d]}
+          for d in ("fwd", "bwd")}
+    print(f"# eval K5 D=3 call {tuple(rec['fwd'][0][1].shape)}: device "
+          f"{dev['fwd']:.4f} / {dev['bwd']:.4f} ms against bounds "
+          f"{bounds['fwd'][0]:.4f} ({bounds['fwd'][1]}) / "
+          f"{bounds['bwd'][0]:.4f} ms ({bounds['bwd'][1]}); card {card}")
+    del rec, host
+
+    # A refinement of n iterations also sets up Adam and makes the final
+    # render; profiling PROF_ITERS and 2 * PROF_ITERS iterations and taking
+    # the difference leaves PROF_ITERS iterations alone.
+    item = val.get_item(EVAL_VAL[1])
+    runs = {}
+    for n_it in (PROF_ITERS, 2 * PROF_ITERS):
+        prof_opt = V.make_pose_opt_fn((W, H), num_iters=n_it, **kw)
+        runs[n_it] = profile_run(lambda: prof_opt(
+            model, item["ts"], perturbed(item["w2cs"]), item["Ks"],
+            item["imgs"]))[1:]
+        check(runs[n_it][0], "the pose refinement's profile recorded no "
+              "device event")
+    (k_a, wall_a, busy_a), (k_b, wall_b, busy_b) = runs.values()
+    kernels_it = (len(k_b) - len(k_a)) / PROF_ITERS
+    busy_it = (busy_b - busy_a) / PROF_ITERS / 1e3
+    wall_it = (wall_b - wall_a) / PROF_ITERS / 1e3
+    print(f"# eval profile, pose iterations {2 * PROF_ITERS} less "
+          f"{PROF_ITERS}: wall {wall_it:.3f} ms/iter, device busy "
+          f"{busy_it:.3f} ms/iter (idle share {1 - busy_it / wall_it:.3f}), "
+          f"{kernels_it:.1f} kernels/iter; the {PROF_ITERS}-iteration run "
+          f"with its set-up and final render: wall {wall_a / 1e3:.3f} ms, "
+          f"busy {busy_a / 1e3:.3f} ms, {len(k_a)} kernels")
+    top_kernels(k_b, PROF_ITERS, 12, minus=k_a)
+    torch.cuda.empty_cache()
+    return {
+        "card": card, "img_wh": [W, H],
+        "gaussians": NUM_FG + scene.bg.capacity, "frames": EVAL_FRAMES,
+        "blur_samples": NUM_EXPOSURE, "cap": TILE_CAP,
+        "pose_iters": POSE_ITERS,
+        "pose_offset": {"rot_y_rad": POSE_ROT_Y, "shift": list(POSE_SHIFT)},
+        "dataset_s": gen_s, "dataset_launches": gen_launches,
+        "pose_ms_per_iter_median": statistics.median(iter_ms[-1]),
+        "pose_ms_per_iter_median_frame1": statistics.median(iter_ms[0]),
+        "k5_launches_per_iter": {"dense_fwd": 1, "dense_bwd": 1},
+        "kernels_per_iter": kernels_it,
+        "device_busy_ms_per_iter": busy_it,
+        "wall_ms_per_iter_profiled": wall_it,
+        "lpips_self": lpips_self, "metrics_refined": metrics,
+        "metrics_true_pose": {k: (x if np.isfinite(x) else str(x))
+                              for k, x in metrics_true.items()},
+        "val_frames": frames,
+        "k5_d3": k5,
+    }
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible (torch.cuda.is_available() "
@@ -1826,7 +2212,9 @@ def main():
     phase_random_dense(tr, errs, [  # (a); D 3 and 8: the generic instance
         (f"cap={c} D={d}", d, 10 * d + i, c)
         for d in (4, 5, 3, 8)
-        for i, c in enumerate(caps if d in (4, 5) else (128, 1024))])
+        for i, c in enumerate(caps if d in (4, 5) else (128, 1024))]
+        + [(f"cap={c} D={d}", d, 100 + 10 * d + i, c)  # the pipeline's caps
+           for d in (3, 4, 5) for i, c in enumerate(BIG_CAPS)])
     split_cases = []  # (b)
     for nchan in (11, 5):
         for i, c in enumerate(caps):
@@ -1857,6 +2245,9 @@ def main():
     s2s_times, scatter = phase_stage2_scatter(tr, errs, rates)
     life = phase_lifecycle(tr)
     phase_loop_small(tr)
+    pose_small = phase_pose_small_vs_cpu(tr)
+    ev = phase_eval(tr, errs, rates, card)
+    ev["pose_64x48_card_vs_cpu"] = pose_small
 
     kernels = []
     full = "stage-2 step 1280x720"
@@ -1928,6 +2319,7 @@ def main():
         print(f"# {label} train step (1280x720, 100k Gaussians, S=11, cap "
               f"1024): median {med * 1e3:.3f} ms over {len(times)} steps, "
               f"{W * H / med:.1f} rays/s; card {card}")
+    print(json.dumps({"eval": ev}))
     print(f"# total run {time.time() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

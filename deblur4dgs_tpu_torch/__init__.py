@@ -10,7 +10,12 @@ Ported so far (ROADMAP.md): the pipeline's train steps (stage 1, stage 2
 and the dynamic step) with every TPU compositor kernel (K1-K6), and the
 training lifecycle around them: the scene bootstrap (train/init.py),
 density control (train/density.py), checkpoints (train/checkpoints.py)
-and the loop (train/loop.py).
+and the loop (train/loop.py). The data and evaluation path: the oracle
+rasterizer (ops/rasterize_ref.py), synthetic scenes and datasets, the
+dataset views, the COLMAP readers and the stereo dataset (data/), the
+metrics, LPIPS and the validator with its test-time pose refinement
+(eval/), the perceptual backbones (models/backbones.py) and the video
+helpers (vis/utils.py).
 """
 
 import torch

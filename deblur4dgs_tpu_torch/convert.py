@@ -25,6 +25,13 @@ the optimizer state per label of the reference's optax multi_transform
     opt/<label>/acc_grads/<key>  MultiSteps running-mean gradients
     stats/grad_norm_acc, stats/vis_count, stats/max_radii
     step
+
+The perceptual nets (backbone_from_numpy / lpips_from_numpy and their
+inverses) take the JAX parameter pytrees with numpy leaves as they are:
+a backbone is a list of {"w": (kh, kw, cin, cout) HWIO, "b": (cout,)}
+convolutions (5 for AlexNet, 16 for VGG19), LPIPS is {"net": <AlexNet>,
+"lins": [(1, 1, C, 1) HWIO heads]}. The port's convolutions are OIHW, so
+every weight is transposed at this boundary.
 """
 
 from __future__ import annotations
@@ -34,6 +41,13 @@ import torch
 from torch import nn
 
 from deblur4dgs_tpu_torch import resolve_device
+from deblur4dgs_tpu_torch.eval.lpips import LPIPS
+from deblur4dgs_tpu_torch.models.backbones import (
+    ALEX_TORCH_IDX,
+    VGG_TORCH_IDX,
+    load_alexnet_torch,
+    load_vgg19_torch,
+)
 from deblur4dgs_tpu_torch.models.gaussians import Gaussians
 from deblur4dgs_tpu_torch.models.motion_bases import MotionBases
 from deblur4dgs_tpu_torch.models.move_model import MoveModel
@@ -169,3 +183,42 @@ def train_state_from_numpy(arrays: dict[str, np.ndarray],
         for f in DensityStats._fields))
     return TrainState(scene=scene, opt_state=opt_state,
                       step=int(arrays["step"]), stats=stats)
+
+
+def backbone_from_numpy(layers: list[dict], device="cuda"):
+    """A JAX AlexNet (5 convolutions) or VGG19 (16) parameter list ->
+    AlexNetFeatures / VGG19Features on ``device`` (through the torchvision
+    state-dict loaders)."""
+    loaders = {5: (load_alexnet_torch, ALEX_TORCH_IDX),
+               16: (load_vgg19_torch, VGG_TORCH_IDX)}
+    if len(layers) not in loaders:
+        raise ValueError(f"{len(layers)} convolutions: neither AlexNet (5) "
+                         "nor VGG19 (16)")
+    load, idxs = loaders[len(layers)]
+    sd = {}
+    for i, layer in zip(idxs, layers):
+        sd[f"features.{i}.weight"] = np.array(layer["w"], np.float32) \
+            .transpose(3, 2, 0, 1)
+        sd[f"features.{i}.bias"] = np.array(layer["b"], np.float32)
+    return load(sd, device)
+
+
+def backbone_to_numpy(net) -> list[dict]:
+    """The inverse of backbone_from_numpy (HWIO copies)."""
+    return [{"w": _np_leaf(c.weight).transpose(2, 3, 1, 0).copy(),
+             "b": _np_leaf(c.bias)} for c in net.convs]
+
+
+def lpips_from_numpy(params: dict, device="cuda") -> LPIPS:
+    """A JAX LPIPS parameter dict {"net", "lins"} -> LPIPS on ``device``."""
+    dev = resolve_device(device)
+    lins = [torch.as_tensor(np.array(w, np.float32).transpose(3, 2, 0, 1),
+                            device=dev) for w in params["lins"]]
+    return LPIPS(backbone_from_numpy(params["net"], dev), lins)
+
+
+def lpips_to_numpy(model: LPIPS) -> dict:
+    """The inverse of lpips_from_numpy."""
+    return {"net": backbone_to_numpy(model.net),
+            "lins": [_np_leaf(w).transpose(2, 3, 1, 0).copy()
+                     for w in model.lins]}

@@ -275,6 +275,14 @@ def se3_log(Rt):
     return torch.cat([w, u], dim=-1)
 
 
+def rt_to_mat4(R, t):
+    """(..., 3, 3), (..., 3) -> (..., 4, 4)."""
+    mat34 = torch.cat([R, t[..., None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
+                          device=R.device).expand(mat34.shape[:-2] + (1, 4))
+    return torch.cat([mat34, bottom], dim=-2)
+
+
 def pose_compose(A, B):
     """Compose two (..., 3, 4) poses: result = A @ B (as 4x4s)."""
     Ra, ta = A[..., :3], A[..., 3]

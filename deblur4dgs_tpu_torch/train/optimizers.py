@@ -109,36 +109,40 @@ class SceneAdam:
         for label, names in by_label.items():
             spec, gs = self.groups[label], state[label]
             if spec.accum_every is None:
-                self._adam(spec, gs, {n: grads[n] for n in names}, params)
+                adam_apply(spec, gs, {n: grads[n] for n in names}, params)
                 continue
             n_acc = gs.mini_step
             for n in names:
                 acc = gs.acc_grads[n]
                 gs.acc_grads[n] = acc + (grads[n] - acc) / (n_acc + 1)
             if gs.mini_step == spec.accum_every - 1:
-                self._adam(spec, gs, gs.acc_grads, params)
+                adam_apply(spec, gs, gs.acc_grads, params)
                 gs.gradient_step += 1
                 gs.acc_grads = {n: torch.zeros_like(g)
                                 for n, g in gs.acc_grads.items()}
             gs.mini_step = (gs.mini_step + 1) % spec.accum_every
         return state
 
-    @staticmethod
-    def _adam(spec: GroupSpec, gs: GroupState, grads, params):
-        count_inc = gs.count + 1
-        dev = next(iter(grads.values())).device
-        f32 = dict(dtype=torch.float32, device=dev)
-        bc1 = 1 - torch.tensor(B1, **f32) ** float(count_inc)
-        bc2 = 1 - torch.tensor(B2, **f32) ** float(count_inc)
-        step = (-spec.lr(gs.count, dev) if callable(spec.lr)
-                else torch.tensor(-spec.lr, **f32))
-        for n, g in grads.items():
-            mu = (1 - B1) * g + B1 * gs.mu[n]
-            nu = (1 - B2) * (g * g) + B2 * gs.nu[n]
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + EPS)
-            params[n].copy_(params[n] + step * u)
-            gs.mu[n], gs.nu[n] = mu, nu
-        gs.count = count_inc
+
+def adam_apply(spec: GroupSpec, gs: GroupState, grads: dict, params: dict):
+    """One optax-style Adam update of the tensors ``params`` (name ->
+    tensor, updated in place) from ``grads``, advancing ``gs``'s moments and
+    count; the learning rate is ``spec.lr`` at the pre-increment count.
+    Call it under torch.no_grad() when the parameters require grad."""
+    count_inc = gs.count + 1
+    dev = next(iter(grads.values())).device
+    f32 = dict(dtype=torch.float32, device=dev)
+    bc1 = 1 - torch.tensor(B1, **f32) ** float(count_inc)
+    bc2 = 1 - torch.tensor(B2, **f32) ** float(count_inc)
+    step = (-spec.lr(gs.count, dev) if callable(spec.lr)
+            else torch.tensor(-spec.lr, **f32))
+    for n, g in grads.items():
+        mu = (1 - B1) * g + B1 * gs.mu[n]
+        nu = (1 - B2) * (g * g) + B2 * gs.nu[n]
+        u = (mu / bc1) / (torch.sqrt(nu / bc2) + EPS)
+        params[n].copy_(params[n] + step * u)
+        gs.mu[n], gs.nu[n] = mu, nu
+    gs.count = count_inc
 
 
 def make_optimizer(scene, lr_cfg: SceneLRConfig,
