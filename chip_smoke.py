@@ -107,7 +107,29 @@ together), then:
      instance) held against its twin and timed on the refinement's first
      call; ms per iteration (CUDA events between the renders), and
      PROF_ITERS iterations under the profiler (20 less 10). Its numbers
-     go to a {"eval": {...}} line.
+     go to a {"eval": {...}} line;
+ 12. (after the kernel phases of 2) the window kernels at the pipeline's
+     capacities and exposure counts (phase_big_caps): caps 2048 and 4096
+     (the quality runs' tile_cap, phase A's min(4 * cap, 4096)), S = 3, 5
+     and 9, nchan 11 and 5, random (deep rows) and edge_bucket cases, and
+     the split path (K4) at the same caps;
+ 13. the port's CLI end to end at full width (phase_pipeline):
+     ``train --synthetic --high-res`` at 1280x720 in-process
+     (pipe_args(): the CLI's 40k fg / 100k bg, S = 11, cap 1024 and so
+     4096 in phase A, over a synthetic scene of as many Gaussians; depth
+     cut by PIPE_CUTS), with the CLI's stage_callback marking each stage's
+     end for its wall time and exact launches, and the logged scalars
+     (--log-every 1) giving its step times and phase A's tile_overflow; the
+     checkpoints, metrics.json, the test PNGs through vis/png.py, and
+     stage 1's scene unchanged by stage 2; then a second call on the same
+     work dir, which restores every stage, launches no window kernel and
+     reproduces metrics.json ({"pipeline": ...} line);
+ 14. the exposure-consistency term (phase_flow): the torch-seeded PWC-Net
+     on a 720p pair, card against CPU (flow, warp, mask); two 64x48
+     stage-2 steps with flow_fn, card against CPU; the bench-shape
+     stage-2 step with flow_fn, timed beside phase c's, profiled (top
+     kernels), and the PWC-Net's forward and correlations alone at its
+     shapes ({"flow": ...}).
 
 Bounds count what the run's data needs: of each payload only the slots
 walked before each row's stop chunk (for K5: those slots' index entries
@@ -117,8 +139,10 @@ Gaussian) pairs inside alpha_at's box, plus a box test per Gaussian and
 block of 32 pixels (OPS_BOX); each kernel's "bound_ms_every_pair" charges
 alpha to every pair up to the stop chunks instead.
 
-Prints a {"kernels": [...]} JSON line, the step times, an {"eval": ...}
-JSON line, the card line, and last {"ok": true, "device": {...}}. Any
+Prints a {"kernels": [...]} JSON line (each kernel's ``launches`` on
+its own driven path and ``launches_pipeline`` in phase_pipeline's first
+call), the step times, {"eval": ...}, {"pipeline": ...} and {"flow": ...}
+JSON lines, the card line, and last {"ok": true, "device": {...}}. Any
 failed check raises (exit != 0).
 Exits non-zero without a result when no CUDA card is visible or when the
 package is not next to this file. Imports no JAX.
@@ -164,6 +188,10 @@ BWD_TOL = 2e-3  # max |kernel - twin| / max |twin|
 POSE_LOSS_REL_EARLY = 1e-5  # per-iteration loss, relative, iterations 0-9
 POSE_LOSS_ABS = 5e-5  # per-iteration loss, absolute, all iterations
 POSE_W2C_ATOL = 1e-4  # refined w2c
+# phase_pipeline's resumed CLI call against its first: the metrics.json
+# values (the same checkpoints, data and pose refinement on one card; bit
+# for bit on two calls, NVIDIA H100 80GB HBM3, 700 W)
+PIPE_RESUME_ATOL = 0.0
 # Card rates for bounds (NVIDIA data sheets; dense FP32 outside the tensor
 # cores, HBM bandwidth), keyed by a substring of the nvidia-smi name.
 CARD_RATES = {  # name key: (bytes/s, fp32 flop/s)
@@ -524,7 +552,7 @@ def step_args(kind, static, dyn, tracks, reg, b4):
             b4 if f.get("has_batch4") else None)
 
 
-def make_step(kind, scene, T, rcfg):
+def make_step(kind, scene, T, rcfg, flow_fn=None):
     from deblur4dgs_tpu_torch.configs import (
         LossesConfig, OptimizerConfig, SceneLRConfig)
     from deblur4dgs_tpu_torch.train.optimizers import make_optimizer
@@ -537,7 +565,7 @@ def make_step(kind, scene, T, rcfg):
     stage = STEP_KINDS[kind]["stage"]
     return (init_train_state(scene, lr, ocfg),
             make_train_step(make_optimizer(scene, lr, ocfg), LossesConfig(),
-                            rcfg, stage, T, **flags))
+                            rcfg, stage, T, flow_fn=flow_fn, **flags))
 
 
 def bench_scene_batches(dev):
@@ -619,12 +647,12 @@ def bench_rcfg():
                         max_tiles_per_gauss=32)
 
 
-def bench_state(dev, kind="dynamic"):
+def bench_state(dev, kind="dynamic", flow_fn=None):
     """bench.py's scene and batches (bench_scene_batches) and the step of
     ``kind`` (STEP_KINDS) to drive: (state, drive(state) -> (state, loss,
     aux))."""
     scene, batches = bench_scene_batches(dev)
-    state, step = make_step(kind, scene, NUM_FRAMES, bench_rcfg())
+    state, step = make_step(kind, scene, NUM_FRAMES, bench_rcfg(), flow_fn)
     args = step_args(kind, *batches)
     return state, lambda s: step(s, EPOCH, *args)
 
@@ -1612,14 +1640,16 @@ def phase_loop_small(tr):
           "checkpoint + 2 steps == 4 steps straight, bit for bit")
 
 
-def profile_run(run):
-    """run() under torch.profiler: (profile, its device events, host wall
-    us, device busy us: the union of the kernels' time spans)."""
+def profile_run(run, ops=True):
+    """run() under torch.profiler, with the host's aten ops and their input
+    shapes if ``ops`` (else the device's events alone, which costs the
+    host far less): (profile, its device events, host wall us, device busy
+    us: the union of the kernels' time spans)."""
     from torch.profiler import ProfilerActivity, profile
 
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ops else [])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
+    with profile(activities=acts, record_shapes=ops) as prof:
         t0 = time.time()
         run()
         torch.cuda.synchronize()
@@ -1770,12 +1800,13 @@ def small_inputs(wh, kind):
 
 
 def phase_small_vs_cpu(tr, errs, rates, wh=(128, 128), kind="dynamic",
-                       expected=None, record=None):
+                       expected=None, record=None, flow=False):
     """(d) Two small-scene train steps (``kind`` of STEP_KINDS) on the card
     vs the CPU path. The card's run is counted (counters zeroed before,
     read after) and must launch ``expected`` kernels per step; ``record``
     names a compositor whose calls are timed and held against their
-    twins."""
+    twins; ``flow`` adds the exposure-consistency term, one torch-seeded
+    PWC-Net's weights on both devices (EPOCH opens its gate)."""
     from deblur4dgs_tpu_torch import configs as C
     from deblur4dgs_tpu_torch.convert import scene_from_numpy
     from deblur4dgs_tpu_torch.train import trainer as TT
@@ -1783,12 +1814,13 @@ def phase_small_vs_cpu(tr, errs, rates, wh=(128, 128), kind="dynamic",
     arrays, inputs = small_inputs(wh, kind)
     kinds = (TT.FrameBatch, TT.FrameBatch, TT.TrackBatch, TT.FrameBatch,
              None)
-    label = f"{kind} step {wh[0]}x{wh[1]}"
+    label = f"{kind} step {wh[0]}x{wh[1]}" + (", flow term" if flow else "")
     results, rec, launches = {}, None, None
     for dev in (DEV, "cpu"):
         scene = scene_from_numpy(arrays, device=dev)
         state, step = make_step(kind, scene, 8,
-                                C.RenderConfig(num_exposure=3, tile_cap=256))
+                                C.RenderConfig(num_exposure=3, tile_cap=256),
+                                flow_net(dev) if flow else None)
         conv = lambda x: torch.as_tensor(x, device=dev)
         args = [None if x is None else
                 (conv(x) if kind is None else kind(*map(conv, x)))
@@ -2152,6 +2184,402 @@ def phase_eval(tr, errs, rates, card):
     }
 
 
+# ---------------------------------------------------------------------------
+# The pipeline's capacities and exposure counts; the CLI end to end; the
+# flow term
+# ---------------------------------------------------------------------------
+
+# The exposure counts of the quality tiers (scripts/tpu_quality_regression
+# .py:165 / :177 / :238, S = 3, 5 and 9); S = 11 is the bench's.
+PIPE_S = (3, 5, 9)
+BIG_T = 24  # rows of the big-capacity cases
+
+
+@torch.no_grad()
+def phase_big_caps(tr, errs):
+    """The window kernels (K1, K2/K3) at the pipeline's capacities
+    (BIG_CAPS: the quality runs' 2048 and phase A's 4096) and exposure
+    counts (PIPE_S), nchan 11 and 5: random buckets (rows from 9 on with a
+    fiftieth of the opacity, so they run deep into the capacity before
+    they stop) and edge_buckets; then the split path (K4, S=1) at the same
+    caps. Against the twins at FWD_TOL / BWD_TOL."""
+    n = 0
+    for cap in BIG_CAPS:
+        for S in PIPE_S:
+            for nchan in (11, 5):
+                seed = 500 + 10 * S + nchan + cap // 1024
+                fa = random_bucket(seed, BIG_T, S, nchan, cap, 80, 3600,
+                                   DEV) + (80, nchan, True)
+                fa[1][9:, 0] *= 0.02
+                label = f"cap={cap} S={S} nchan={nchan}"
+                compare_case(tr, errs, "window", f"random {label}", fa, seed)
+                _, tf = tr._COMPOSITORS["window"][1](*fa)
+                check(float(tf[1:9].max()) < tr.EARLY_STOP_T,
+                      f"window {label}: saturating rows did not saturate")
+                compare_case(tr, errs, "window", f"edge {label}", edge_bucket(
+                    seed + 1, BIG_T, S, nchan, cap, 80, 3600, DEV)
+                    + (80, nchan, True), seed)
+                n += 2
+        for nchan in (11, 5):
+            for maker in (random_bucket, edge_bucket):
+                seed = 600 + nchan + cap // 1024
+                dyn, st, counts, ids = maker(seed, BIG_T, 1, nchan, cap, 80,
+                                             3600, DEV)
+                if maker is random_bucket:
+                    st[9:, 0] *= 0.02
+                compare_case(tr, errs, "split",
+                             f"{maker.__name__} cap={cap} nchan={nchan}",
+                             (dyn[:, 0], st, counts, ids, 80, nchan, True),
+                             seed)
+                n += 1
+    torch.cuda.synchronize()
+    return n
+
+
+# phase_pipeline: the port's CLI at full width. Only depth is cut (the
+# epochs, steps, initial-optim and pose iterations below); the widths are
+# the CLI's defaults (40k fg and 100k bg Gaussians, S = 11, tile cap 1024,
+# phase A at min(4 * 1024, 4096)) over a synthetic 1280x720 scene of as
+# many ground-truth Gaussians and tracks.
+PIPE_FRAMES = 8
+PIPE_POSE_ITERS = 20
+PIPE_STEPS = 2  # per stage (1 epoch each)
+PIPE_CUTS = ["--epochs-static", "1", "--epochs-dynamic", "1",
+             "--steps-per-epoch", str(PIPE_STEPS), "--initial-optim-iters",
+             "50", "--pose-opt-iters", str(PIPE_POSE_ITERS),
+             "--save-videos-every", "0", "--validate-every", "1000"]
+PIPE_NUM_BG = 100_000  # the CLI's --num-bg default
+
+
+def pipe_args():
+    """The CLI call of phase_pipeline (the CLI's default widths, PIPE_CUTS
+    for depth)."""
+    return (["train", "--synthetic", "--high-res", "--synthetic-wh", str(W),
+             str(H), "--synthetic-frames", str(PIPE_FRAMES),
+             "--synthetic-num-fg", str(NUM_FG), "--synthetic-num-bg",
+             str(PIPE_NUM_BG), "--synthetic-tracks", str(NUM_FG),
+             "--device", DEV] + PIPE_CUTS)
+
+
+PIPE_BLUR = 7  # generate_dataset's blur samples (its default)
+
+
+def pipeline_call(tr, work, label):
+    """One CLI call (``main(pipe_args())`` with ``--log-every 1``) on
+    ``work``, the counters zeroed just before and read just after. Its
+    stages come from the CLI's stage_callback: each stage runs from the
+    previous stage's end (the call's start for 'static') to its own, so it
+    holds the renders and the init before it, and 'testing' runs from the
+    last window to the call's end. Per stage: wall s, launches, the step
+    times (train/step_s) and the last step's tile_overflow per branch, both
+    from the scalars the CLI's writer logs. Returns (launches, stages, wall
+    s, metrics.json, stage 1's scene with a copy of its tensors)."""
+    from deblur4dgs_tpu_torch import cli
+
+    marks, static = [], {}
+
+    def on_stage(tag, scene, window):
+        torch.cuda.synchronize()
+        marks.append((tag, time.time(), dict(tr.LAUNCHES)))
+        if tag == "static":
+            static["scene"] = scene
+            static["copy"] = {n: v.clone() for n, v in
+                              scene.state_dict().items()}
+
+    scalars = os.path.join(work, "scalars.jsonl")
+    n_old = 0
+    if os.path.exists(scalars):
+        with open(scalars) as f:
+            n_old = len(f.readlines())
+    torch.cuda.synchronize()
+    zero_launches(tr)
+    t0 = time.time()
+    marks.append(("start", t0, dict(tr.LAUNCHES)))
+    cli.main(pipe_args() + ["--work-dir", work, "--log-every", "1"],
+             stage_callback=on_stage)
+    torch.cuda.synchronize()
+    marks.append(("testing", time.time(), dict(tr.LAUNCHES)))
+    wall = marks[-1][1] - t0
+    launches = dict(tr.LAUNCHES)
+    with open(os.path.join(work, "metrics.json")) as f:
+        metrics = json.load(f)
+    with open(scalars) as f:
+        logged = [json.loads(line) for line in f.readlines()[n_old:]]
+    stages = []
+    for (_, t_a, l_a), (tag, t_b, l_b) in zip(marks, marks[1:]):
+        mine = [r for r in logged if t_a <= r["time"] < t_b]
+        over = {}
+        for r in mine:
+            if r["tag"].endswith("/tile_overflow"):
+                over[r["tag"].split("/")[1]] = r["value"]
+        stages.append({
+            "stage": tag, "s": t_b - t_a,
+            "launches": {n: l_b[n] - l_a[n] for n in l_b},
+            "steps_ms": [r["value"] * 1e3 for r in mine
+                         if r["tag"] == "train/step_s"],
+            "tile_overflow": over or None})
+    print(f"# pipeline {label}: {wall:.3f} s, launches {launches}")
+    for e in stages:
+        med = statistics.median(e["steps_ms"]) if e["steps_ms"] else None
+        print(f"#   {e['stage']}: {e['s']:.3f} s, steps "
+              f"{[round(x, 3) for x in e['steps_ms']]} ms (median {med}), "
+              f"tile_overflow {e['tile_overflow']}, launches "
+              f"{ {k: v for k, v in e['launches'].items() if v} }")
+    return launches, stages, wall, metrics, static
+
+
+def phase_pipeline(tr, card):
+    """The port's CLI end to end at 1280x720 (pipe_args()): stage 1, phase A
+    at x4 (cap 4096), the ceil(8/5) = 2 phase-B windows, per-window testing
+    with pose refinement, the metrics; then a second call on the same work
+    dir, which must restore every stage, launch no window kernel and
+    reproduce metrics.json. Checks the checkpoints, metrics.json, the test
+    PNGs (through vis/png.py), every stage's exact launches, and that
+    stage 2 left stage 1's scene unchanged."""
+    import shutil
+
+    from deblur4dgs_tpu_torch.ops.tiling import default_bucket_spec, num_tiles
+    from deblur4dgs_tpu_torch.vis.png import read_png
+
+    work = os.path.join(HERE, "build", "chip_pipeline")
+    shutil.rmtree(work, ignore_errors=True)
+    launches, stages, wall, metrics, static = pipeline_call(
+        tr, work, "first call")
+    check(all(np.isfinite(v) for v in metrics.values())
+          and 0.0 <= metrics["val/ssim"] <= 1.0,
+          f"pipeline metrics.json not finite: {metrics}")
+    wins = sorted(d for d in os.listdir(os.path.join(work, "ckpts"))
+                  if d.startswith("win_"))
+    check(len(wins) == 2, f"phase-B windows {wins}")
+    for tag in ["static", "dynamicA"] + wins:
+        check(os.path.isfile(os.path.join(work, "ckpts", tag, "last")),
+              f"pipeline: no checkpoint for {tag}")
+    n_png = 0
+    for w in wins:
+        d = os.path.join(work, "results", w, "rgb_test_optim")
+        for f in sorted(os.listdir(d)):
+            img = read_png(os.path.join(d, f))
+            check(img.shape == (H, W, 3), f"{d}/{f}: shape {img.shape}")
+            n_png += 1
+    check(n_png == 2 * PIPE_FRAMES, f"{n_png} test PNGs")
+
+    # exact launches per stage; a stage holds what ran since the one
+    # before: 'static' the dataset's renders (PIPE_BLUR + 2 per frame),
+    # 'dynamicA' the two stage-1 bg renders (full and x4), the first
+    # window phase A's guide renders
+    nb = len(default_bucket_spec(num_tiles((W, H))[0] * num_tiles((W, H))[1],
+                                 TILE_CAP))
+    tx4, ty4 = num_tiles((W // 4, H // 4))
+    nb4 = len(default_bucket_spec(tx4 * ty4, min(4 * TILE_CAP, 4096)))
+    S, F = PIPE_STEPS, PIPE_FRAMES
+    want = {"static": {"window_fwd": 3 * nb * S, "window_bwd": 3 * nb * S,
+                       "dense_fwd": F * (PIPE_BLUR + 2) + F},
+            "dynamicA": {"window_fwd": 2 * nb4 * S, "window_bwd": 2 * nb4 * S,
+                         "dense_fwd": 2 * F + S + F, "dense_bwd": S},
+            "testing": {"dense_fwd": F * (PIPE_POSE_ITERS + 1),
+                        "dense_bwd": F * PIPE_POSE_ITERS}}
+    first = True
+    for e in stages:
+        if e["stage"].startswith("win_"):
+            lo, hi = int(e["stage"][4:6]), int(e["stage"][6:8])
+            want[e["stage"]] = {"window_fwd": 2 * nb * S,
+                                "window_bwd": 2 * nb * S,
+                                "dense_fwd": F * first + S + (hi - lo),
+                                "dense_bwd": S}
+            first = False
+        w_ = want.get(e["stage"], {})
+        for k, v in e["launches"].items():
+            check(v == w_.get(k, 0), f"pipeline {e['stage']}: {k} launched "
+                  f"{v} times, expected {w_.get(k, 0)}")
+        n_steps = len(e["steps_ms"])
+        check(n_steps == (0 if e["stage"] == "testing" else S),
+              f"pipeline {e['stage']}: {n_steps} logged steps")
+    for k in ("window_fwd", "window_bwd", "dense_fwd", "dense_bwd"):
+        check(launches[k] > 0, f"pipeline: {k} never launched")
+    stage_tags = [e["stage"] for e in stages]
+    check(stage_tags == ["static", "dynamicA"] + wins + ["testing"],
+          f"pipeline stages {stage_tags}")
+    a_over = next(e["tile_overflow"] for e in stages
+                  if e["stage"] == "dynamicA")
+    check(a_over is not None, "phase A logged no tile_overflow")
+    print(f"# pipeline phase A (x4, cap {min(4 * TILE_CAP, 4096)}) stage-end "
+          f"tile_overflow {a_over}")
+    same = all(torch.equal(v, static["copy"][n]) for n, v in
+               static["scene"].state_dict().items())
+    check(same, "stage 2 changed stage 1's scene")
+
+    launches2, stages2, wall2, metrics2, _ = pipeline_call(tr, work,
+                                                           "resumed")
+    for k in ("window_fwd", "window_bwd", "split_fwd", "split_bwd"):
+        check(launches2[k] == 0, f"resumed pipeline launched {k} "
+              f"{launches2[k]} times")
+    check(all(e["steps_ms"] == [] for e in stages2),
+          "the resumed pipeline trained")
+    gap = max(abs(metrics2[k] - metrics[k]) for k in metrics)
+    print(f"# pipeline resumed: metrics {metrics2}; largest gap to the first"
+          f" call {gap:.3e}")
+    check(set(metrics2) == set(metrics) and gap <= PIPE_RESUME_ATOL,
+          f"the resumed pipeline's metrics differ by {gap:.3e}")
+    torch.cuda.empty_cache()
+    return {
+        "card": card, "argv": pipe_args(), "cuts": PIPE_CUTS,
+        "img_wh": [W, H], "frames": PIPE_FRAMES, "wall_s": wall,
+        "resumed_wall_s": wall2, "metrics": metrics,
+        "resume_metrics_gap": gap, "launches": launches,
+        "resumed_launches": launches2, "phase_a_tile_overflow": a_over,
+        "stages": stages,
+        "resumed_stages": [{k: e[k] for k in ("stage", "s", "launches")}
+                           for e in stages2],
+    }
+
+
+# Bars of phase_flow's PWC-Net at 720p, card against CPU (both FP32, TF32
+# off): the flow, the warp where both masks hold, and the share of pixels
+# whose 0.999 mask threshold falls the other way. NVIDIA H100 80GB HBM3,
+# 700 W, two calls: flow 1.07e-6 / 1.13e-6 of a 1.11 max, warp 6.9e-6, no
+# flip.
+FLOW_ATOL = 1e-4  # times max(1, max |flow|)
+WARP_ATOL = 1e-4
+MASK_FLIP_SHARE = 1e-4
+FLOW_PROF = 1  # steps in phase_flow's profile
+
+
+def flow_net(dev):
+    """make_aligned_loss_fn of the torch-seeded PWC-Net (Generator seed 0,
+    drawn on the CPU) on ``dev``."""
+    from deblur4dgs_tpu_torch.models import pwcnet as P
+    return P.make_aligned_loss_fn(
+        P.init_pwcnet(torch.Generator().manual_seed(0), "cpu").to(dev))
+
+
+def phase_flow(tr, errs, rates, card, s2_median_s):
+    """The exposure-consistency term: the PWC-Net on a 720p pair on the
+    card against the same weights on the CPU (flow, warp, mask); two 64x48
+    stage-2 steps with flow_fn, card against CPU (phase_small_vs_cpu's
+    bars); two bench-shape stage-2 steps with flow_fn (finite, timed), a
+    profile of that step (top kernels, device busy), and the PWC-Net's
+    forward and its correlations alone at the step's shapes."""
+    from deblur4dgs_tpu_torch.models import pwcnet as P
+
+    g = torch.Generator().manual_seed(3)
+    base = torch.nn.functional.interpolate(
+        torch.rand((1, 3, H // 16, W // 16), generator=g), size=(H, W),
+        mode="bilinear", align_corners=False)
+    a = base.permute(0, 2, 3, 1).contiguous()
+    b = torch.roll(a, shifts=(3, 5), dims=(1, 2))
+    out = {}
+    for dev in (DEV, "cpu"):
+        net = P.init_pwcnet(torch.Generator().manual_seed(0), "cpu").to(dev)
+        fn = P.make_aligned_loss_fn(net)
+        aa, bb = a.to(dev), b.to(dev)
+        if dev == DEV:
+            torch.cuda.synchronize()
+        t0 = time.time()
+        with torch.no_grad():
+            flow = P.pwcnet_flow(net, aa, bb)
+            aligned, mask = fn(aa, bb)
+        if dev == DEV:
+            torch.cuda.synchronize()
+        out[dev] = (flow.cpu(), aligned.cpu(), mask.cpu(), time.time() - t0)
+    (fc, ac, mc, tc), (fp, ap, mp, tp) = out[DEV], out["cpu"]
+    fscale = max(1.0, float(fp.abs().max()))
+    ferr = float((fc - fp).abs().max())
+    both = (mc > 0) & (mp > 0)
+    werr = float(((ac - ap).abs() * both).max())
+    flips = float((mc != mp).float().mean())
+    print(f"# flow {W}x{H} pair: card {tc:.3f} s, CPU {tp:.3f} s (first "
+          f"call); "
+          f"flow max |f| {fscale:.4f}, card vs CPU {ferr:.3e}; mask share "
+          f"{float(mp.mean()):.4f}, flips {flips:.3e}; warp {werr:.3e}")
+    check(ferr <= FLOW_ATOL * fscale, f"flow card vs CPU {ferr:.3e}")
+    check(werr <= WARP_ATOL, f"warp card vs CPU {werr:.3e}")
+    check(flips <= MASK_FLIP_SHARE, f"flow mask flips {flips:.3e}")
+
+    small = phase_small_vs_cpu(tr, errs, rates, wh=(64, 48), kind="stage2",
+                               flow=True, expected={
+                                   "split_fwd": 3 * 4, "split_bwd": 3 * 4,
+                                   "dense_fwd": 1, "dense_bwd": 1})
+
+    nb = n_buckets()
+    net = P.init_pwcnet(torch.Generator().manual_seed(0), "cpu").to(DEV)
+    state, drive = bench_state(DEV, "stage2",
+                               flow_fn=P.make_aligned_loss_fn(net))
+    state, times, launches = drive_steps(
+        tr, state, drive, "stage-2 step with the flow term",
+        {"window_fwd": 4 * nb, "window_bwd": 4 * nb, "dense_fwd": 1,
+         "dense_bwd": 1})
+    med = statistics.median(times)
+    pairs = 2 * (NUM_EXPOSURE - 1)
+    print(f"# stage-2 step {W}x{H} with the flow term ({pairs} PWC-Net "
+          f"pairs): median {med * 1e3:.3f} ms over {len(times)} steps; "
+          f"without it {s2_median_s * 1e3:.3f} ms (phase c); card {card}")
+
+    # Where the step's time goes: profiles of FLOW_PROF and 2 * FLOW_PROF
+    # steps, whose difference holds FLOW_PROF steps alone; then the
+    # PWC-Net's forward on the step's pairs and its five correlations
+    # alone (CUDA events, inputs of the same shapes).
+    runs = {}
+    for n in (FLOW_PROF, 2 * FLOW_PROF):
+        box = [state]
+
+        def run(n=n):
+            for _ in range(n):
+                box[0], _, _ = drive(box[0])
+
+        runs[n] = profile_run(run, ops=False)[1:]
+        state = box[0]
+        check(runs[n][0], "the flow step's profile recorded no device event")
+    (k_a, wall_a, busy_a), (k_b, wall_b, busy_b) = runs.values()
+    busy_ms = (busy_b - busy_a) / FLOW_PROF / 1e3
+    wall_ms = (wall_b - wall_a) / FLOW_PROF / 1e3
+    ksum_ms = (sum(e.time_range.elapsed_us() for e in k_b) - sum(
+        e.time_range.elapsed_us() for e in k_a)) / FLOW_PROF / 1e3
+    print(f"# flow step profile, {2 * FLOW_PROF} steps less {FLOW_PROF}: "
+          f"wall {wall_ms:.3f} ms/step, device busy {busy_ms:.3f} ms/step "
+          f"(idle share {1 - busy_ms / wall_ms:.3f}), kernel times summed "
+          f"{ksum_ms:.3f} ms/step, "
+          f"{(len(k_b) - len(k_a)) / FLOW_PROF:.1f} kernels/step")
+    top_kernels(k_b, FLOW_PROF, 15, minus=k_a)
+    del state, drive
+    torch.cuda.empty_cache()
+    Hp, Wp = -(-H // 64) * 64, -(-W // 64) * 64
+    g = torch.Generator().manual_seed(4)
+    pa, pb = (torch.rand((pairs, H, W, 3), generator=g).to(DEV)
+              for _ in range(2))
+    with torch.no_grad():
+        net_ms = cuda_ms(lambda: P.pwcnet_flow(net, pa, pb), 2)
+        # the same forward with cuDNN's autotuner on (the port leaves it
+        # off): how much the convolution algorithms it picks cost
+        torch.backends.cudnn.benchmark = True
+        try:
+            net_tuned_ms = cuda_ms(lambda: P.pwcnet_flow(net, pa, pb), 2)
+        finally:
+            torch.backends.cudnn.benchmark = False
+        f1, f2 = (net.netExtractor(torch.rand(
+            (pairs, 3, Hp, Wp), generator=g).to(DEV)) for _ in range(2))
+        corr_ms = [cuda_ms(lambda i=i: P.correlation(f1[-1 - i], f2[-1 - i]),
+                           2) for i in range(5)]
+    del pa, pb, f1, f2
+    torch.cuda.empty_cache()
+    print(f"# PWC-Net forward on {pairs} pairs at {W}x{H} ({Wp}x{Hp} "
+          f"inside): {net_ms:.3f} ms ({net_tuned_ms:.3f} ms with cuDNN's "
+          f"autotuner on); its correlations (levels 6 to 2) "
+          f"{[round(x, 3) for x in corr_ms]} ms, {sum(corr_ms):.3f} ms in "
+          f"all; the step's flow term {(med - s2_median_s) * 1e3:.3f} ms")
+    return {"card": card, "pair_card_s": tc, "pair_cpu_s": tp,
+            "flow_max_abs": fscale, "flow_err": ferr, "warp_err": werr,
+            "mask_flip_share": flips, "small_launches": small,
+            "stage2_flow_ms": [t * 1e3 for t in times],
+            "stage2_flow_median_ms": med * 1e3,
+            "stage2_median_ms": s2_median_s * 1e3,
+            "profile_wall_ms_per_step": wall_ms,
+            "profile_busy_ms_per_step": busy_ms,
+            "profile_kernel_sum_ms_per_step": ksum_ms,
+            "pwcnet_forward_ms": net_ms,
+            "pwcnet_forward_autotuned_ms": net_tuned_ms,
+            "correlation_ms": corr_ms}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible (torch.cuda.is_available() "
@@ -2227,6 +2655,10 @@ def main():
     phase_random_scatter(tr, errs)
     phase_edge(tr, errs)
     phase_edge_dense(tr, errs)
+    t0 = time.time()
+    n_big = phase_big_caps(tr, errs)
+    print(f"# {n_big} window / split cases at caps {BIG_CAPS}, S {PIPE_S}: "
+          f"{time.time() - t0:.1f} s")
 
     dyn_times, dyn_launches, _ = phase_bench(tr, errs, rates)
     s2_times, s2_launches, win, dense, cull = phase_stage2(tr, errs, rates)
@@ -2248,6 +2680,12 @@ def main():
     pose_small = phase_pose_small_vs_cpu(tr)
     ev = phase_eval(tr, errs, rates, card)
     ev["pose_64x48_card_vs_cpu"] = pose_small
+    t0 = time.time()
+    pipe = phase_pipeline(tr, card)
+    pipe["phase_s"] = time.time() - t0
+    t0 = time.time()
+    flow = phase_flow(tr, errs, rates, card, statistics.median(s2_times))
+    flow["phase_s"] = time.time() - t0
 
     kernels = []
     full = "stage-2 step 1280x720"
@@ -2274,6 +2712,7 @@ def main():
                 "replaces_fn": tpu_fn,
                 "launches": launches[k],
                 "launches_path": path,
+                "launches_pipeline": pipe["launches"][k],
                 "timed_on": timed_on,
                 "max_abs_err": errs.v[k][0],
                 "max_rel_err": errs.v[k][1],
@@ -2320,6 +2759,16 @@ def main():
               f"1024): median {med * 1e3:.3f} ms over {len(times)} steps, "
               f"{W * H / med:.1f} rays/s; card {card}")
     print(json.dumps({"eval": ev}))
+    print(json.dumps({"pipeline": pipe}))
+    print(json.dumps({"flow": flow}))
+    for e in pipe["stages"]:
+        if e["steps_ms"]:
+            print(f"# pipeline stage {e['stage']}: {e['s']:.3f} s, step "
+                  f"median {statistics.median(e['steps_ms']):.3f} ms; card "
+                  f"{card}")
+    print(f"# pipeline (CLI, {W}x{H}): {pipe['wall_s']:.3f} s, resumed "
+          f"{pipe['resumed_wall_s']:.3f} s, phase {pipe['phase_s']:.1f} s; "
+          f"flow phase {flow['phase_s']:.1f} s")
     print(f"# total run {time.time() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

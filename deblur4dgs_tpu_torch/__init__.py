@@ -15,7 +15,10 @@ rasterizer (ops/rasterize_ref.py), synthetic scenes and datasets, the
 dataset views, the COLMAP readers and the stereo dataset (data/), the
 metrics, LPIPS and the validator with its test-time pose refinement
 (eval/), the perceptual backbones (models/backbones.py) and the video
-helpers (vis/utils.py).
+helpers (vis/utils.py). The staged pipeline and its command line
+(pipeline.py, cli.py, ``python -m deblur4dgs_tpu_torch``), the PWC-Net
+of the exposure-consistency term (models/pwcnet.py) and a PNG codec in
+the standard library (vis/png.py).
 """
 
 import torch

@@ -32,6 +32,13 @@ a backbone is a list of {"w": (kh, kw, cin, cout) HWIO, "b": (cout,)}
 convolutions (5 for AlexNet, 16 for VGG19), LPIPS is {"net": <AlexNet>,
 "lins": [(1, 1, C, 1) HWIO heads]}. The port's convolutions are OIHW, so
 every weight is transposed at this boundary.
+
+The PWC-Net (pwcnet_from_numpy / pwcnet_to_numpy) takes the JAX package's
+pytree {"extractor": 6 levels x 3 convolutions, "decoders": {6..2: {"one",
+..., "six", and below level 6 "upflow", "upfeat"}}, "refiner": 7
+convolutions}, each {"w": HWIO, "b"}. Its transposed convolutions
+(upflow, upfeat) hold the torch ConvTranspose2d kernel (cin, cout, kh, kw)
+spatially flipped, as (kh, kw, cin, cout).
 """
 
 from __future__ import annotations
@@ -51,6 +58,11 @@ from deblur4dgs_tpu_torch.models.backbones import (
 from deblur4dgs_tpu_torch.models.gaussians import Gaussians
 from deblur4dgs_tpu_torch.models.motion_bases import MotionBases
 from deblur4dgs_tpu_torch.models.move_model import MoveModel
+from deblur4dgs_tpu_torch.models.pwcnet import (
+    _LEVEL_NAMES,
+    PWCNet,
+    load_pwcnet_torch,
+)
 from deblur4dgs_tpu_torch.models.scene import SceneModel
 from deblur4dgs_tpu_torch.train.optimizers import GroupState, param_label
 from deblur4dgs_tpu_torch.train.trainer import DensityStats, TrainState
@@ -222,3 +234,59 @@ def lpips_to_numpy(model: LPIPS) -> dict:
     return {"net": backbone_to_numpy(model.net),
             "lins": [_np_leaf(w).transpose(2, 3, 1, 0).copy()
                      for w in model.lins]}
+
+
+_PWC_EXTRACTOR = ["netOne", "netTwo", "netThr", "netFou", "netFiv", "netSix"]
+_PWC_DECODER = {"one": "netOne.0", "two": "netTwo.0", "thr": "netThr.0",
+                "fou": "netFou.0", "fiv": "netFiv.0", "six": "netSix.0",
+                "upflow": "netUpflow", "upfeat": "netUpfeat"}
+
+
+def _pwc_names(params: dict):
+    """(torch state name without .weight / .bias, JAX conv dict,
+    transposed?) for every convolution of a JAX PWC-Net pytree."""
+    for n, level in zip(_PWC_EXTRACTOR, params["extractor"]):
+        for i, conv in zip((0, 2, 4), level):
+            yield f"netExtractor.{n}.{i}", conv, False
+    for lvl, d in params["decoders"].items():
+        for key, conv in d.items():
+            yield (f"{_LEVEL_NAMES[int(lvl)]}.{_PWC_DECODER[key]}", conv,
+                   key.startswith("up"))
+    for i, conv in enumerate(params["refiner"]):
+        yield f"netRefiner.netMain.{2 * i}", conv, False
+
+
+def pwcnet_from_numpy(params: dict, device="cuda") -> PWCNet:
+    """A JAX PWC-Net pytree (numpy or JAX leaves) -> PWCNet on ``device``."""
+    sd = {}
+    for name, conv, transposed in _pwc_names(params):
+        w = np.array(conv["w"], np.float32)
+        sd[f"{name}.weight"] = (w[::-1, ::-1].transpose(2, 3, 0, 1)
+                                if transposed else w.transpose(3, 2, 0, 1))
+        sd[f"{name}.bias"] = np.array(conv["b"], np.float32)
+    return load_pwcnet_torch(
+        {k: np.ascontiguousarray(v) for k, v in sd.items()}, device)
+
+
+def pwcnet_to_numpy(net: PWCNet) -> dict:
+    """The inverse of pwcnet_from_numpy (numpy leaves, HWIO copies)."""
+    sd = {k: _np_leaf(v) for k, v in net.state_dict().items()}
+
+    def conv(name, transposed):
+        w = sd[f"{name}.weight"]
+        w = (w.transpose(2, 3, 0, 1)[::-1, ::-1] if transposed
+             else w.transpose(2, 3, 1, 0))
+        return {"w": np.ascontiguousarray(w), "b": sd[f"{name}.bias"]}
+
+    return {
+        "extractor": [[conv(f"netExtractor.{n}.{i}", False) for i in (0, 2, 4)]
+                      for n in _PWC_EXTRACTOR],
+        "decoders": {
+            lvl: {key: conv(f"{name}.{_PWC_DECODER[key]}",
+                            key.startswith("up"))
+                  for key in _PWC_DECODER
+                  if lvl < 6 or not key.startswith("up")}
+            for lvl, name in _LEVEL_NAMES.items()},
+        "refiner": [conv(f"netRefiner.netMain.{2 * i}", False)
+                    for i in range(7)],
+    }

@@ -13,8 +13,8 @@ lax.scan; here they are a plain loop, and only R and T are
 differentiated (torch.autograd.grad), never the scene's parameters.
 
 Inputs may be tensors or numpy arrays; they go to the scene's device at
-this boundary. Images are written with imageio, imported where they are
-written, as in the reference.
+this boundary. Images are written as 8-bit PNGs through vis/png.py (the
+standard library alone), the files the reference writes with imageio.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from deblur4dgs_tpu_torch.train.optimizers import (
     _cosine_schedule,
     adam_apply,
 )
+from deblur4dgs_tpu_torch.vis.png import write_png
 
 
 def _scene_device(scene: SceneModel) -> torch.device:
@@ -138,12 +139,10 @@ class Validator:
     def _save(self, subdir, name, img):
         if self.save_dir is None:
             return
-        import imageio.v3 as iio
-
         d = osp.join(self.save_dir, "results", subdir)
         os.makedirs(d, exist_ok=True)
         img = img.detach().cpu().numpy() if torch.is_tensor(img) else img
-        iio.imwrite(
+        write_png(
             osp.join(d, f"{name}.png"),
             (np.clip(np.asarray(img), 0, 1) * 255).astype(np.uint8),
         )

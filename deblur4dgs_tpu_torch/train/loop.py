@@ -203,6 +203,7 @@ class TrainLoop:
     def _log(self, loss, aux, step_time, any_batch):
         w = self.writer
         w.add_scalar("train/loss", loss, self.global_step)
+        w.add_scalar("train/step_s", step_time, self.global_step)
         if any_batch is not None:
             B, H, W = any_batch.imgs.shape[:3]
             w.add_scalar("train/num_rays_per_sec",

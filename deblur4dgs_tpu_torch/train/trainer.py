@@ -5,8 +5,9 @@ PyTorch port of deblur4dgs_tpu/train/trainer.py: the static branch
 the static-reg branch (bg-only sharp 'mid' renders). The step runs the
 branches it was built with, backpropagates their summed loss once, applies
 the grouped Adam update in place and accumulates density-control
-statistics. Not ported (raise NotImplementedError): the exposure-
-consistency term behind ``flow_fn`` (PWC-Net) and multi-device training.
+statistics. With ``flow_fn`` (models/pwcnet.py::make_aligned_loss_fn) the
+dynamic branch adds the exposure-consistency term. Not ported (it
+raises): multi-device training.
 
 Density statistics use the tap trick: a zeros leaf (``requires_grad``) is
 added to every sub-frame's projected means2d; its ``.grad`` is
@@ -114,6 +115,31 @@ def downsample_area(img: torch.Tensor, factor: int) -> torch.Tensor:
     Hc, Wc = H // factor, W // factor
     img = img[: Hc * factor, : Wc * factor]
     return img.reshape(Hc, factor, Wc, factor, C).mean(dim=(1, 3))
+
+
+def exposure_consistency_loss(imgs_s, masks_s, flow_fn):
+    """Exposure sub-frame consistency (the reference's trainer.py:599-618).
+
+    Each term is the flow-aligned L1 between a sub-frame pair, weighted by
+    the flow validity mask and the detached rendered fg mask of the pair's
+    target: sub-frame e against e + 1 for e < S - 1, then sub-frame e
+    against the detached sub-frame 0 for e >= 1; the sum over the 2(S - 1)
+    pairs is divided by S - 1. All pairs go through ``flow_fn`` as one
+    batch.
+
+    imgs_s: (S, H, W, 3) per-sub-frame renders; masks_s: (S, H, W, 1)
+    per-sub-frame rendered fg masks; flow_fn(a, b) with a, b (N, H, W, 3)
+    -> (aligned a, flow mask (N, H, W, 1)).
+    """
+    S = imgs_s.shape[0]
+    first = imgs_s[0].detach().expand_as(imgs_s[1:])
+    a = torch.cat([imgs_s[:-1], imgs_s[1:]])
+    b = torch.cat([imgs_s[1:], first])
+    m = torch.cat([masks_s[1:], masks_s[0].expand_as(masks_s[1:])]).detach()
+    aligned, fmask = flow_fn(a, b)
+    w = fmask * m
+    per_pair = torch.mean(torch.abs(aligned * w - b * w), dim=(1, 2, 3))
+    return per_pair.sum() / (S - 1)
 
 
 def rgb_l1_ssim(pred, gt, mask=None):
@@ -260,12 +286,9 @@ def compute_dynamic_losses(
     flow_fn=None,
 ):
     """Dynamic branch: full blurry render + tracks, depth, mask, motion and
-    exposure regularizers. Returns (loss, aux dict)."""
-    if flow_fn is not None:
-        raise NotImplementedError(
-            "the exposure-consistency (flow) term needs the PWC-Net port "
-            "(a later slice)"
-        )
+    exposure regularizers, and with ``flow_fn`` the exposure-consistency
+    term (its epoch gate a multiplier, as the reference's). Returns (loss,
+    aux dict)."""
     _, H, W = batch.imgs.shape[:3]
     img_wh = (W, H)
 
@@ -276,7 +299,7 @@ def compute_dynamic_losses(
         target_ts=tracks.target_ts.to(torch.float32),
         target_w2cs=tracks.target_w2cs,
         return_mask=True, return_depth=True, bg_color=1.0,
-        means2d_tap=_tap(taps, 0), return_exposure_stack=False,
+        means2d_tap=_tap(taps, 0), return_exposure_stack=flow_fn is not None,
         **_render_kw(rcfg),
     )
 
@@ -288,6 +311,12 @@ def compute_dynamic_losses(
     rgb_dyn = rgb_l1_ssim(rendered[None], img_gt[None], mask_dilated[None])
     rgb_full = rgb_l1_ssim(rendered[None], img_gt[None])
     loss = (rgb_dyn + rgb_full) * lcfg.w_rgb
+
+    if flow_fn is not None:
+        cons = exposure_consistency_loss(
+            out["exposure_imgs"], out["exposure_masks"], flow_fn)
+        gate = float(int(epoch) > lcfg.exposure_cons_start_epoch)
+        loss = loss + gate * (cons * lcfg.w_exposure_cons)
 
     mask_loss = torch.mean((out["acc"] - 1.0) ** 2) + L.masked_l1_loss(
         out["mask"], masks[..., None], quantile=0.98
@@ -447,11 +476,6 @@ def make_train_step(
     static, as in the reference (each branch overwrites the statistic the
     densifier reads); only that branch's render carries a means2d tap.
     """
-    if flow_fn is not None:
-        raise NotImplementedError(
-            "flow_fn (the exposure-consistency term) needs the PWC-Net port "
-            "(a later slice)"
-        )
     if subframe_sharding is not None or tile_mesh is not None:
         raise NotImplementedError("multi-device training is a later slice")
     if not (has_static or has_dynamic or has_reg):
@@ -487,6 +511,7 @@ def make_train_step(
                 scene, batch_dyn, tracks, taps("dynamic"), lcfg, rcfg, stage,
                 epoch, num_window_frames,
                 batch4_imgs=batch4_imgs if has_batch4 else None,
+                flow_fn=flow_fn,
             )
             loss = loss + l
         if has_reg:

@@ -34,7 +34,9 @@ def _imports(path):
 
 
 def test_no_forbidden_imports_in_source():
-    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [
+        REPO / "chip_smoke.py",
+        REPO / "scripts" / "torch_quality_regression.py"]
     assert len(files) >= 20
     bad = [
         (f.relative_to(REPO).as_posix(), mod)
@@ -47,7 +49,8 @@ def test_no_forbidden_imports_in_source():
 def test_importing_the_port_loads_no_jax():
     modules = [
         f"deblur4dgs_tpu_torch.{p.relative_to(PKG).with_suffix('').as_posix().replace('/', '.')}"
-        for p in sorted(PKG.rglob("*.py")) if p.name != "__init__.py"
+        for p in sorted(PKG.rglob("*.py"))
+        if p.name not in ("__init__.py", "__main__.py")  # __main__ runs
     ]
     code = (
         "import sys, importlib\n"
@@ -57,6 +60,32 @@ def test_importing_the_port_loads_no_jax():
         "sys.exit(1 if bad else 0)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_cli_help_loads_no_jax():
+    """``python -m deblur4dgs_tpu_torch --help`` prints the usage, and the
+    CLI with its subcommands' modules (the pipeline) loads no JAX."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-m", "deblur4dgs_tpu_torch", "--help"], cwd=REPO,
+        env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "train" in proc.stdout and "metrics" in proc.stdout
+    code = (
+        "import sys, runpy\n"
+        "sys.argv = ['deblur4dgs_tpu_torch', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('deblur4dgs_tpu_torch', run_name='__main__')\n"
+        "except SystemExit:\n"
+        "    pass\n"
+        "import deblur4dgs_tpu_torch.pipeline\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
