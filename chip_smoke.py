@@ -39,7 +39,8 @@ together), then:
      warm-up step, then timed steps with the launch counters zeroed just
      before and read just after (4 forward + 4 backward window launches per
      step); holds the window kernels against their twins on that step's
-     inputs (first 64 rows of every bucket);
+     inputs (first 64 rows of every bucket); then the same step with
+     RenderConfig.camera_mode 'cubic' (phase_bench_cubic), timed;
   4. drives the stage-2 step (static + dynamic + static-reg branches and
      the multires guide) at the same shape (phase c): the static batch is
      B=3 frames (ts 4/5/6), the reg batch the dynamic frame with random
@@ -69,8 +70,9 @@ together), then:
      step at 128x128; the stage-2 step at 128x128 (windows through K1/K2,
      reg through K5) and at 64x48 (windows through K4, with S x 4 split
      launches per direction per step, reg through K5); the stage-1 step at
-     64x48 (S x 3 split launches); K4 is timed and held against its twin
-     on the 64x48 stage-2 run's inputs;
+     64x48 (S x 3 split launches); the dynamic step at 128x128 with the
+     'cubic' camera; K4 is timed and held against its twin on the 64x48
+     stage-2 run's inputs;
   7. the scatter-output window compositor K6 (the port's D4_SCATTER
      path, ops/rasterize.py::_USE_SCATTER, set for these phases and
      restored): K6 against its twins on random buckets (caps 128-1024,
@@ -123,8 +125,21 @@ together), then:
      checkpoints, metrics.json, the test PNGs through vis/png.py, and
      stage 1's scene unchanged by stage 2; then a second call on the same
      work dir, which restores every stage, launches no window kernel and
-     reproduces metrics.json ({"pipeline": ...} line);
- 14. the exposure-consistency term (phase_flow): the torch-seeded PWC-Net
+     reproduces metrics.json ({"pipeline": ...} line); the first call
+     writes the train videos at the CLI's --save-videos-every (animated
+     PNGs under results/videos, checked to decode);
+ 14. the viewer (phase_viewer) on phase_pipeline's last window
+     checkpoint (the CLI's capacities, 1280x720): the CLI's render-path
+     over 4 keyframes with times, 24 path frames (an animated PNG that
+     decodes to 24 frames; exactly 24 K5 forward launches and no other
+     kernel; ms per frame and K5's device time per frame); one path frame
+     at 512x288 on the card against the CPU twin (FWD_TOL); a DynamicViewer
+     on port 0 whose /render PNGs (posed, canonical, with tracks) equal
+     render_fn's frames byte for byte, its request latency; a 64x48
+     stage-2 TrainLoop with a TrainingViewer and a client thread POSTing
+     renders, equal bit for bit to the loop without a viewer
+     ({"viewer": ...} line);
+ 15. the exposure-consistency term (phase_flow): the torch-seeded PWC-Net
      on a 720p pair, card against CPU (flow, warp, mask); two 64x48
      stage-2 steps with flow_fn, card against CPU; the bench-shape
      stage-2 step with flow_fn, timed beside phase c's, profiled (top
@@ -140,9 +155,11 @@ block of 32 pixels (OPS_BOX); each kernel's "bound_ms_every_pair" charges
 alpha to every pair up to the stop chunks instead.
 
 Prints a {"kernels": [...]} JSON line (each kernel's ``launches`` on
-its own driven path and ``launches_pipeline`` in phase_pipeline's first
-call), the step times, {"eval": ...}, {"pipeline": ...} and {"flow": ...}
-JSON lines, the card line, and last {"ok": true, "device": {...}}. Any
+its own driven path, ``launches_pipeline`` in phase_pipeline's first
+call and, for K5, ``launches_render_path`` in phase_viewer's render-path
+call), the step times, {"eval": ...}, {"pipeline": ...}, {"viewer": ...}
+and {"flow": ...} JSON lines, the card line, and last {"ok": true,
+"device": {...}}. Any
 failed check raises (exit != 0).
 Exits non-zero without a result when no CUDA card is visible or when the
 package is not next to this file. Imports no JAX.
@@ -641,18 +658,19 @@ def bench_scene_batches(dev):
     return scene, (static, batch, tracks, reg, b4)
 
 
-def bench_rcfg():
+def bench_rcfg(camera_mode="linear"):
     from deblur4dgs_tpu_torch.configs import RenderConfig
     return RenderConfig(num_exposure=NUM_EXPOSURE, tile_cap=TILE_CAP,
-                        max_tiles_per_gauss=32)
+                        max_tiles_per_gauss=32, camera_mode=camera_mode)
 
 
-def bench_state(dev, kind="dynamic", flow_fn=None):
+def bench_state(dev, kind="dynamic", flow_fn=None, camera_mode="linear"):
     """bench.py's scene and batches (bench_scene_batches) and the step of
     ``kind`` (STEP_KINDS) to drive: (state, drive(state) -> (state, loss,
     aux))."""
     scene, batches = bench_scene_batches(dev)
-    state, step = make_step(kind, scene, NUM_FRAMES, bench_rcfg(), flow_fn)
+    state, step = make_step(kind, scene, NUM_FRAMES, bench_rcfg(camera_mode),
+                            flow_fn)
     args = step_args(kind, *batches)
     return state, lambda s: step(s, EPOCH, *args)
 
@@ -1252,6 +1270,20 @@ def phase_bench(tr, errs, rates):
     return times, launches, measure(tr, errs, "window", rec, rates)
 
 
+def phase_bench_cubic(tr):
+    """The dynamic step at the bench shape with RenderConfig.camera_mode
+    'cubic' (the duplicated-knot SE(3) B-spline over the exposure, through
+    K1/K2 as the linear camera): one warm-up and TIMED_STEPS timed steps,
+    exact window launches."""
+    state, drive = bench_state(DEV, camera_mode="cubic")
+    nb = n_buckets()
+    _, times, _ = drive_steps(tr, state, drive, "dynamic step, cubic camera",
+                              {"window_fwd": nb, "window_bwd": nb})
+    del state
+    torch.cuda.empty_cache()
+    return times
+
+
 def phase_stage2(tr, errs, rates):
     """(c) The stage-2 step at the bench shape, its profile, and the window
     kernels (16 calls: 3 static windows, nchan 5, and the dynamic one,
@@ -1547,10 +1579,10 @@ SMALL_OCFG = dict(warmup_steps=0, control_every=2,
 SMALL_START = 8  # densify when step % 200 > 8 frames: steps 10 and 12
 
 
-def small_loop(dev, arrays, inputs, work, state=None):
-    """A stage-2 TrainLoop of the small 128x128 scene on ``dev`` (its
-    state starting at step SMALL_START, or ``state``) and its batch
-    arguments."""
+def small_loop(dev, arrays, inputs, work, state=None, viewer=None):
+    """A stage-2 TrainLoop of a small scene (small_inputs) on ``dev`` (its
+    state starting at step SMALL_START, or ``state``; with ``viewer``
+    attached) and its batch arguments."""
     from deblur4dgs_tpu_torch import configs as C
     from deblur4dgs_tpu_torch.convert import scene_from_numpy
     from deblur4dgs_tpu_torch.models.gaussians import pad_to_capacity
@@ -1570,7 +1602,8 @@ def small_loop(dev, arrays, inputs, work, state=None):
                      C.LossesConfig(),
                      C.RenderConfig(num_exposure=3, tile_cap=256), ocfg, 8,
                      work, "second", has_static=True, has_dynamic=True,
-                     has_reg=True, has_batch4=True, checkpoint_every=0)
+                     has_reg=True, has_batch4=True, checkpoint_every=0,
+                     viewer=viewer)
     loop.epoch = EPOCH
     kinds = (TT.FrameBatch, TT.FrameBatch, TT.TrackBatch, TT.FrameBatch,
              None)
@@ -1800,13 +1833,15 @@ def small_inputs(wh, kind):
 
 
 def phase_small_vs_cpu(tr, errs, rates, wh=(128, 128), kind="dynamic",
-                       expected=None, record=None, flow=False):
+                       expected=None, record=None, flow=False,
+                       camera_mode="linear"):
     """(d) Two small-scene train steps (``kind`` of STEP_KINDS) on the card
     vs the CPU path. The card's run is counted (counters zeroed before,
     read after) and must launch ``expected`` kernels per step; ``record``
     names a compositor whose calls are timed and held against their
     twins; ``flow`` adds the exposure-consistency term, one torch-seeded
-    PWC-Net's weights on both devices (EPOCH opens its gate)."""
+    PWC-Net's weights on both devices (EPOCH opens its gate);
+    ``camera_mode`` is RenderConfig's."""
     from deblur4dgs_tpu_torch import configs as C
     from deblur4dgs_tpu_torch.convert import scene_from_numpy
     from deblur4dgs_tpu_torch.train import trainer as TT
@@ -1814,12 +1849,14 @@ def phase_small_vs_cpu(tr, errs, rates, wh=(128, 128), kind="dynamic",
     arrays, inputs = small_inputs(wh, kind)
     kinds = (TT.FrameBatch, TT.FrameBatch, TT.TrackBatch, TT.FrameBatch,
              None)
-    label = f"{kind} step {wh[0]}x{wh[1]}" + (", flow term" if flow else "")
+    label = (f"{kind} step {wh[0]}x{wh[1]}" + (", flow term" if flow else "")
+             + (f", {camera_mode} camera" if camera_mode != "linear" else ""))
     results, rec, launches = {}, None, None
     for dev in (DEV, "cpu"):
         scene = scene_from_numpy(arrays, device=dev)
         state, step = make_step(kind, scene, 8,
-                                C.RenderConfig(num_exposure=3, tile_cap=256),
+                                C.RenderConfig(num_exposure=3, tile_cap=256,
+                                               camera_mode=camera_mode),
                                 flow_net(dev) if flow else None)
         conv = lambda x: torch.as_tensor(x, device=dev)
         args = [None if x is None else
@@ -2247,8 +2284,9 @@ PIPE_STEPS = 2  # per stage (1 epoch each)
 PIPE_CUTS = ["--epochs-static", "1", "--epochs-dynamic", "1",
              "--steps-per-epoch", str(PIPE_STEPS), "--initial-optim-iters",
              "50", "--pose-opt-iters", str(PIPE_POSE_ITERS),
-             "--save-videos-every", "0", "--validate-every", "1000"]
+             "--validate-every", "1000"]
 PIPE_NUM_BG = 100_000  # the CLI's --num-bg default
+PIPE_WORK = os.path.join(HERE, "build", "chip_pipeline")
 
 
 def pipe_args():
@@ -2339,9 +2377,9 @@ def phase_pipeline(tr, card):
     import shutil
 
     from deblur4dgs_tpu_torch.ops.tiling import default_bucket_spec, num_tiles
-    from deblur4dgs_tpu_torch.vis.png import read_png
+    from deblur4dgs_tpu_torch.vis.png import read_apng, read_png
 
-    work = os.path.join(HERE, "build", "chip_pipeline")
+    work = PIPE_WORK
     shutil.rmtree(work, ignore_errors=True)
     launches, stages, wall, metrics, static = pipeline_call(
         tr, work, "first call")
@@ -2362,6 +2400,17 @@ def phase_pipeline(tr, card):
             check(img.shape == (H, W, 3), f"{d}/{f}: shape {img.shape}")
             n_png += 1
     check(n_png == 2 * PIPE_FRAMES, f"{n_png} test PNGs")
+    # the train videos (Validator.save_train_videos, animated PNGs): every
+    # stage writes <kind>_0 at its epoch-0 validation, the last window last
+    lo, hi = int(wins[-1][4:6]), int(wins[-1][6:8])
+    videos = {}
+    for kind in ("rgb", "depth", "mask"):
+        path = os.path.join(work, "results", "videos", f"{kind}_0.png")
+        check(os.path.isfile(path), f"pipeline: no train video {path}")
+        frames, _ = read_apng(path)
+        check(frames.shape == (hi - lo, H, W, 3),
+              f"pipeline: train video {kind}_0 holds {frames.shape}")
+        videos[kind] = list(frames.shape)
 
     # exact launches per stage; a stage holds what ran since the one
     # before: 'static' the dataset's renders (PIPE_BLUR + 2 per frame),
@@ -2371,11 +2420,15 @@ def phase_pipeline(tr, card):
                                  TILE_CAP))
     tx4, ty4 = num_tiles((W // 4, H // 4))
     nb4 = len(default_bucket_spec(tx4 * ty4, min(4 * TILE_CAP, 4096)))
+    # and each stage's validation (epoch 0, its last) the train videos at
+    # the CLI's --save-videos-every (epoch 0 % 50 == 0): one render per
+    # train frame (the second F of 'static' and 'dynamicA', a window's
+    # hi - lo once more)
     S, F = PIPE_STEPS, PIPE_FRAMES
     want = {"static": {"window_fwd": 3 * nb * S, "window_bwd": 3 * nb * S,
-                       "dense_fwd": F * (PIPE_BLUR + 2) + F},
+                       "dense_fwd": F * (PIPE_BLUR + 2) + F + F},
             "dynamicA": {"window_fwd": 2 * nb4 * S, "window_bwd": 2 * nb4 * S,
-                         "dense_fwd": 2 * F + S + F, "dense_bwd": S},
+                         "dense_fwd": 2 * F + S + F + F, "dense_bwd": S},
             "testing": {"dense_fwd": F * (PIPE_POSE_ITERS + 1),
                         "dense_bwd": F * PIPE_POSE_ITERS}}
     first = True
@@ -2384,7 +2437,7 @@ def phase_pipeline(tr, card):
             lo, hi = int(e["stage"][4:6]), int(e["stage"][6:8])
             want[e["stage"]] = {"window_fwd": 2 * nb * S,
                                 "window_bwd": 2 * nb * S,
-                                "dense_fwd": F * first + S + (hi - lo),
+                                "dense_fwd": F * first + S + 2 * (hi - lo),
                                 "dense_bwd": S}
             first = False
         w_ = want.get(e["stage"], {})
@@ -2426,11 +2479,294 @@ def phase_pipeline(tr, card):
         "img_wh": [W, H], "frames": PIPE_FRAMES, "wall_s": wall,
         "resumed_wall_s": wall2, "metrics": metrics,
         "resume_metrics_gap": gap, "launches": launches,
+        "train_videos": videos,
         "resumed_launches": launches2, "phase_a_tile_overflow": a_over,
         "stages": stages,
         "resumed_stages": [{k: e[k] for k in ("stage", "s", "launches")}
                            for e in stages2],
     }
+
+
+# phase_viewer: the viewer slice on phase_pipeline's last window
+# checkpoint (the CLI's 40k fg / 100k bg capacities at 1280x720).
+VIEW_PATH_FRAMES = 24
+VIEW_SMALL_WH = (512, 288)  # the viewer's default frame
+VIEW_REQUESTS = 5  # timed /render requests
+VIEW_LOOP_WH = (64, 48)
+VIEW_LOOP_STEPS = 3  # steps 9-11 of small_loop: a densify at step 10
+
+
+def view_keyframes(num_frames):
+    """4 keyframes with times about the synthetic scene's cameras (at
+    z = -2.5 looking down +z, data/synthetic.py::make_scene) with its
+    vertical field of view (focal 0.9 * max(W, H))."""
+    fov = 2.0 * float(np.arctan(0.5 * H / (0.9 * max(W, H))))
+    out = []
+    for i, (x, y, yaw) in enumerate(((-0.15, 0.0, 0.06), (0.0, -0.08, 0.0),
+                                     (0.15, 0.04, -0.06),
+                                     (0.05, 0.08, 0.02))):
+        c2w = np.eye(4)
+        c2w[0, 0] = c2w[2, 2] = np.cos(yaw)
+        c2w[0, 2], c2w[2, 0] = np.sin(yaw), -np.sin(yaw)
+        c2w[:3, 3] = (x, y, -2.5)
+        out.append({"c2w": c2w.tolist(), "fov": fov,
+                    "time": round(i * (num_frames - 1) / 3)})
+    return out
+
+
+def frame_float(renderer, cam, wh, t):
+    """render_fn's render before it is quantized: (H, W, 3) float on the
+    renderer's device."""
+    from deblur4dgs_tpu_torch.models.scene import render
+
+    Wv, Hv = wh
+    dev = renderer.scene.fg.means.device
+    focal = 0.5 * Hv / np.tan(0.5 * cam.fov)
+    K = np.asarray([[focal, 0.0, Wv / 2.0], [0.0, focal, Hv / 2.0],
+                    [0.0, 0.0, 1.0]], np.float32)
+    w2c = np.linalg.inv(cam.c2w.astype(np.float32))
+    with torch.inference_mode():
+        out = render(renderer.scene, t, torch.as_tensor(w2c, device=dev),
+                     torch.as_tensor(K, device=dev), wh, mode="mid",
+                     stage="second", num_exposure=renderer.num_exposure,
+                     cap=renderer.cap)
+        return torch.clamp(out["img"], 0, 1)
+
+
+def post(base, route, body):
+    import urllib.request
+
+    req = urllib.request.Request(base + route, data=json.dumps(body).encode(),
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.headers.get("Content-Type"), r.read()
+
+
+def decode_png(blob):
+    """A PNG's pixels (vis/png.py reads files)."""
+    import tempfile
+
+    from deblur4dgs_tpu_torch.vis.png import read_png
+
+    with tempfile.NamedTemporaryFile(suffix=".png",
+                                     dir=os.path.join(HERE, "build")) as f:
+        f.write(blob)
+        f.flush()
+        return read_png(f.name)
+
+
+def phase_viewer(tr, card):
+    """The viewer slice on phase_pipeline's last window checkpoint: (a) the
+    CLI's render-path at 1280x720 over view_keyframes (24 path frames):
+    the animated PNG decodes to 24 frames, exactly 24 K5 forward launches
+    and no other; the frames rendered again (ms per frame, host clock) and
+    profiled (K5's device time per frame, device busy); (b) one path frame
+    at 512x288 on the card against the CPU twin (FWD_TOL on the float
+    render, 1 level on the uint8 frame); (c) a DynamicViewer over the same
+    Renderer on port 0: /render posed, canonical and with tracks, each PNG
+    equal to render_fn's frame byte for byte, and the posed request timed;
+    (d) a 64x48 stage-2 TrainLoop (small_loop, deterministic algorithms)
+    with a TrainingViewer while a client thread POSTs renders: its state
+    equals the same loop's without a viewer, bit for bit."""
+    import io
+    import threading
+
+    from deblur4dgs_tpu_torch import cli
+    from deblur4dgs_tpu_torch.train.checkpoints import template_state
+    from deblur4dgs_tpu_torch.vis.png import read_apng
+    from deblur4dgs_tpu_torch.vis.render_panel import (
+        Keyframe, interpolate_camera_path, render_camera_path)
+    from deblur4dgs_tpu_torch.vis.renderer import CameraState, Renderer
+    from deblur4dgs_tpu_torch.vis.viewer import DynamicViewer, TrainingViewer
+
+    work = PIPE_WORK
+    win = sorted(d for d in os.listdir(os.path.join(work, "ckpts"))
+                 if d.startswith("win_"))[-1]
+    ckpt = os.path.join(work, "ckpts", win, "last")
+    T = int(win[6:8]) - int(win[4:6])
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True)["scene"]
+    n_fg, n_bg = saved["fg.means"].shape[0], saved["bg.means"].shape[0]
+    n_bases = saved["bases.rots"].shape[0]
+    n_move = saved["move.time_params"].shape[0]  # stage 1's: the clip's
+    del saved
+    kf_json = view_keyframes(T)
+    kf_path = os.path.join(work, "view_keyframes.json")
+    with open(kf_path, "w") as f:
+        json.dump(kf_json, f)
+    keyframes = [Keyframe(c2w=np.asarray(k["c2w"], np.float32), fov=k["fov"],
+                          time=k["time"]) for k in kf_json]
+    ckpt_args = ["--checkpoint", ckpt, "--num-frames", str(T), "--num-fg",
+                 str(n_fg), "--num-bg", str(n_bg), "--num-motion-bases",
+                 str(n_bases)]
+
+    # (a) render-path through the CLI
+    argv = (["render-path"] + ckpt_args
+            + ["--keyframes", kf_path, "--out",
+               os.path.join(work, "view_path.mp4"), "--path-frames",
+               str(VIEW_PATH_FRAMES), "--width", str(W), "--height", str(H),
+               "--device", DEV])
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    zero_launches(tr)
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.time() - t0
+    launches = dict(tr.LAUNCHES)
+    res = json.loads(buf.getvalue().strip().splitlines()[-1])
+    frames, delays = read_apng(res["video"])
+    print(f"# viewer: render-path ({W}x{H}, {VIEW_PATH_FRAMES} frames, "
+          f"{win} at {n_fg} fg / {n_bg} bg) {cli_s:.3f} s through the CLI, "
+          f"launches {launches}; {res}")
+    check(res["frames"] == VIEW_PATH_FRAMES
+          and frames.shape == (VIEW_PATH_FRAMES, H, W, 3),
+          f"render-path wrote {frames.shape}, printed {res}")
+    for k, v in launches.items():
+        want = VIEW_PATH_FRAMES if k == "dense_fwd" else 0
+        check(v == want, f"render-path: {k} launched {v} times, expected "
+              f"{want}")
+    check(int(frames.std()) > 0, "render-path: blank frames")
+
+    renderer = Renderer.init_from_checkpoint(
+        ckpt, template_state(n_fg, n_bg, n_bases, T, device=DEV,
+                             num_move_frames=n_move), T)
+    render_camera_path(renderer.render_fn, keyframes, (W, H), 2,
+                       num_scene_frames=T)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    again, _ = render_camera_path(renderer.render_fn, keyframes, (W, H),
+                                  VIEW_PATH_FRAMES, num_scene_frames=T)
+    frame_ms = (time.time() - t0) * 1e3 / VIEW_PATH_FRAMES
+    gap = int(np.abs(again.astype(int) - frames.astype(int)).max())
+    check(gap <= 1, f"render-path frames rendered again differ by {gap}")
+    _, kernels, wall_us, busy = profile_run(
+        lambda: render_camera_path(renderer.render_fn, keyframes, (W, H),
+                                   VIEW_PATH_FRAMES, num_scene_frames=T),
+        ops=False)
+    k5_us = sum(e.time_range.elapsed_us() for e in kernels
+                if "dense_fwd" in e.name)
+    prof = {"wall_ms_per_frame": wall_us / VIEW_PATH_FRAMES / 1e3,
+            "device_busy_ms_per_frame": (busy or 0) / VIEW_PATH_FRAMES / 1e3,
+            "k5_device_ms_per_frame": k5_us / VIEW_PATH_FRAMES / 1e3,
+            "kernels_per_frame": len(kernels) / VIEW_PATH_FRAMES}
+    print(f"# viewer: render-path frame {frame_ms:.3f} ms (render_fn, host "
+          f"clock, {W}x{H}); profiled {prof}; card {card}; top kernels "
+          f"per frame:")
+    top_kernels(kernels, VIEW_PATH_FRAMES, 8)
+
+    # (b) one path frame at 512x288, card against the CPU twin
+    w2cs, fovs, times = interpolate_camera_path(keyframes, VIEW_PATH_FRAMES)
+    i = VIEW_PATH_FRAMES // 2
+    cam = CameraState(fov=float(fovs[i]), aspect=VIEW_SMALL_WH[0] /
+                      VIEW_SMALL_WH[1], c2w=torch.linalg.inv(w2cs[i]).numpy())
+    t_i = min(max(int(round(float(times[i]))), 0), T - 1)
+    cpu = Renderer.init_from_checkpoint(
+        ckpt, template_state(n_fg, n_bg, n_bases, T, device="cpu",
+                             num_move_frames=n_move), T)
+    card_f = frame_float(renderer, cam, VIEW_SMALL_WH, t_i).cpu()
+    cpu_f = frame_float(cpu, cam, VIEW_SMALL_WH, t_i)
+    err = float((card_f - cpu_f).abs().max())
+    rel = err / max(1.0, float(cpu_f.abs().max()))
+    levels = int(np.abs(
+        renderer.render_fn(cam, VIEW_SMALL_WH, t_i).astype(int)
+        - cpu.render_fn(cam, VIEW_SMALL_WH, t_i).astype(int)).max())
+    print(f"# viewer: path frame {i} (t={t_i}) at {VIEW_SMALL_WH}, card vs "
+          f"CPU: max abs {err:.3e} (rel {rel:.3e}), uint8 levels {levels}")
+    check(rel <= FWD_TOL and levels <= 1,
+          f"viewer frame card vs CPU: rel {rel:.3e}, levels {levels}")
+    del cpu
+
+    # (c) the HTTP viewer on port 0
+    view = DynamicViewer(renderer.render_fn, T, img_wh=VIEW_SMALL_WH, port=0)
+    view.serve_forever(background=True)
+    lat = []
+    try:
+        base = f"http://127.0.0.1:{view.port}"
+        c2w = np.asarray(kf_json[1]["c2w"], np.float32)
+        for body, t, tracks in (({"t": 2}, 2, False),
+                                ({"t": 2, "canonical": True}, None, False),
+                                ({"t": 2, "tracks": True}, 2, True)):
+            ctype, blob = post(base, "/render", {"c2w": c2w.tolist(),
+                                                 **body})
+            want = renderer.render_fn(
+                CameraState(fov=np.pi / 3, aspect=VIEW_SMALL_WH[0] /
+                            VIEW_SMALL_WH[1], c2w=c2w), VIEW_SMALL_WH, t,
+                render_tracks=tracks)
+            got = decode_png(blob)
+            check(ctype == "image/png" and np.array_equal(got, want),
+                  f"viewer /render {body}: the PNG differs from render_fn's "
+                  f"frame")
+        for _ in range(VIEW_REQUESTS):
+            t0 = time.time()
+            post(base, "/render", {"c2w": c2w.tolist(), "t": 2})
+            lat.append((time.time() - t0) * 1e3)
+    finally:
+        view.close()
+    t0 = time.time()
+    for _ in range(VIEW_REQUESTS):
+        renderer.render_fn(CameraState(np.pi / 3, 16 / 9, c2w),
+                           VIEW_SMALL_WH, 2)
+    fn_ms = (time.time() - t0) * 1e3 / VIEW_REQUESTS
+    print(f"# viewer: /render at {VIEW_SMALL_WH} {[round(x, 3) for x in lat]}"
+          f" ms (median {statistics.median(lat):.3f}); render_fn alone "
+          f"{fn_ms:.3f} ms; card {card}")
+    del renderer, view
+    torch.cuda.empty_cache()
+
+    # (d) a TrainLoop with a TrainingViewer, bit for bit against none
+    arrays, inputs = small_inputs(VIEW_LOOP_WH, "stage2")
+    loop_work = os.path.join(HERE, "build", "chip_smoke")
+    n_renders, errors = [0], []
+    torch.use_deterministic_algorithms(True)
+    try:
+        plain, args = small_loop(DEV, arrays, inputs, loop_work)
+        for _ in range(VIEW_LOOP_STEPS):
+            plain.train_step(*args)
+        tv = TrainingViewer(8, img_wh=VIEW_LOOP_WH, port=0, num_exposure=3,
+                            cap=256)
+        tv.serve_forever(background=True)
+        stop = threading.Event()
+
+        def client():
+            base = f"http://127.0.0.1:{tv.port}"
+            try:
+                while not stop.is_set():
+                    post(base, "/render", {"c2w": np.eye(4).tolist(),
+                                           "t": 3, "tracks": True})
+                    n_renders[0] += 1
+            except Exception as e:  # reported below, in the main thread
+                errors.append(repr(e))
+
+        th = threading.Thread(target=client)
+        th.start()
+        try:
+            viewed, args = small_loop(DEV, arrays, inputs, loop_work,
+                                      viewer=tv)
+            for _ in range(VIEW_LOOP_STEPS):
+                viewed.train_step(*args)
+            torch.cuda.synchronize()
+        finally:
+            stop.set()
+            th.join(timeout=120)
+            tv.close()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(not th.is_alive() and not errors, f"viewer client: {errors}")
+    check(n_renders[0] > 0, "viewer client rendered nothing")
+    assert_states_equal(state_tensors(plain.state),
+                        state_tensors(viewed.state), "TrainingViewer loop")
+    print(f"# viewer: {VIEW_LOOP_WH} stage-2 TrainLoop, {VIEW_LOOP_STEPS} "
+          f"steps with a TrainingViewer and {n_renders[0]} renders beside "
+          f"it == the loop without a viewer, bit for bit")
+    return {"card": card, "checkpoint": win, "capacities": [n_fg, n_bg],
+            "render_path": {"img_wh": [W, H], "frames": VIEW_PATH_FRAMES,
+                            "launches": launches, "cli_s": cli_s,
+                            "frame_ms": frame_ms, **prof},
+            "card_vs_cpu_512x288": {"max_abs": err, "rel": rel,
+                                    "uint8_levels": levels},
+            "request_ms": lat, "render_fn_ms": fn_ms,
+            "loop_renders": n_renders[0]}
 
 
 # Bars of phase_flow's PWC-Net at 720p, card against CPU (both FP32, TF32
@@ -2661,6 +2997,7 @@ def main():
           f"{time.time() - t0:.1f} s")
 
     dyn_times, dyn_launches, _ = phase_bench(tr, errs, rates)
+    cubic_times = phase_bench_cubic(tr)
     s2_times, s2_launches, win, dense, cull = phase_stage2(tr, errs, rates)
     s1_times, s1_launches = phase_stage1(tr)
     phase_small_vs_cpu(tr, errs, rates, expected={
@@ -2673,6 +3010,8 @@ def main():
                   "dense_bwd": 1})
     phase_small_vs_cpu(tr, errs, rates, wh=(64, 48), kind="stage1",
                        expected={"split_fwd": 3 * 3, "split_bwd": 3 * 3})
+    phase_small_vs_cpu(tr, errs, rates, camera_mode="cubic", expected={
+        "window_fwd": 2, "window_bwd": 2})
     ab_times = phase_scatter_ab(tr)
     s2s_times, scatter = phase_stage2_scatter(tr, errs, rates)
     life = phase_lifecycle(tr)
@@ -2683,6 +3022,9 @@ def main():
     t0 = time.time()
     pipe = phase_pipeline(tr, card)
     pipe["phase_s"] = time.time() - t0
+    t0 = time.time()
+    view = phase_viewer(tr, card)
+    view["phase_s"] = time.time() - t0
     t0 = time.time()
     flow = phase_flow(tr, errs, rates, card, statistics.median(s2_times))
     flow["phase_s"] = time.time() - t0
@@ -2728,6 +3070,12 @@ def main():
             kernels[-1]["instances"] = {  # the instances it may run
                 "generic" if n == 3 else f"nchan {n}": v[d]
                 for n, v in by_n.items()}
+            if kind == "dense":  # the viewer's render-path frames
+                kernels[-1]["launches_render_path"] = \
+                    view["render_path"]["launches"][k]
+            if k == "dense_fwd":
+                kernels[-1]["render_path_device_ms_per_frame"] = \
+                    view["render_path"]["k5_device_ms_per_frame"]
             if extra:  # K5: (function ms, host parts' ms, function device)
                 kernels[-1]["function_ms"] = extra[0][d]
                 kernels[-1]["function_device_ms"] = extra[2][d]
@@ -2751,7 +3099,9 @@ def main():
           f"median {statistics.median(life['step_ms']):.3f} ms without its "
           f"control event over {LIFE_STEPS} steps; control events (ms) "
           f"{[(e['step'], round(e['ms'], 3)) for e in life['events']]}")
-    for label, times in (("dynamic", dyn_times), ("stage-2", s2_times),
+    for label, times in (("dynamic", dyn_times),
+                         ("dynamic, cubic camera", cubic_times),
+                         ("stage-2", s2_times),
                          ("stage-2 scatter", s2s_times),
                          ("stage-1", s1_times)):
         med = statistics.median(times)
@@ -2760,6 +3110,7 @@ def main():
               f"{W * H / med:.1f} rays/s; card {card}")
     print(json.dumps({"eval": ev}))
     print(json.dumps({"pipeline": pipe}))
+    print(json.dumps({"viewer": view}))
     print(json.dumps({"flow": flow}))
     for e in pipe["stages"]:
         if e["steps_ms"]:
@@ -2768,7 +3119,13 @@ def main():
                   f"{card}")
     print(f"# pipeline (CLI, {W}x{H}): {pipe['wall_s']:.3f} s, resumed "
           f"{pipe['resumed_wall_s']:.3f} s, phase {pipe['phase_s']:.1f} s; "
-          f"flow phase {flow['phase_s']:.1f} s")
+          f"viewer phase {view['phase_s']:.1f} s; flow phase "
+          f"{flow['phase_s']:.1f} s")
+    print(f"# render-path ({W}x{H}): {view['render_path']['frame_ms']:.3f} "
+          f"ms per frame, K5 forward "
+          f"{view['render_path']['k5_device_ms_per_frame']:.3f} ms of device "
+          f"time per frame; viewer /render at {VIEW_SMALL_WH}: median "
+          f"{statistics.median(view['request_ms']):.3f} ms; card {card}")
     print(f"# total run {time.time() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,10 @@ metrics, LPIPS and the validator with its test-time pose refinement
 helpers (vis/utils.py). The staged pipeline and its command line
 (pipeline.py, cli.py, ``python -m deblur4dgs_tpu_torch``), the PWC-Net
 of the exposure-consistency term (models/pwcnet.py) and a PNG codec in
-the standard library (vis/png.py).
+the standard library (vis/png.py). The viewer and its utilities
+(vis/renderer.py, vis/viewer.py, vis/render_panel.py,
+utils/trajectories.py, utils/profiling.py; ``view``, ``render-path`` and
+``train --viewer-port``) and the 'cubic' exposure camera.
 """
 
 import torch

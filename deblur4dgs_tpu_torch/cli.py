@@ -10,6 +10,11 @@ four):
   python -m deblur4dgs_tpu_torch train --synthetic --work-dir out \\
       --device cpu ...
   python -m deblur4dgs_tpu_torch metrics --result-dir ... [--gt-dir ...]
+  python -m deblur4dgs_tpu_torch view --checkpoint ... --num-frames T \\
+      --num-fg N --num-bg M [--port 8890] [--device cuda]
+  python -m deblur4dgs_tpu_torch render-path --checkpoint ... \\
+      --num-frames T --num-fg N --num-bg M --keyframes kf.json \\
+      --out path.mp4 [--device cuda]
 
 ``--device`` (default cuda; no silent fallback to the CPU) takes the place
 of the JAX package's ``--no-pallas``. Scalars go to
@@ -21,8 +26,14 @@ synthetic scene, and they let a synthetic run fill the --num-fg /
 init one per ground-truth bg Gaussian). The port renders the synthetic
 frames through the tile path (K5; its plain twin on the CPU) at every
 size, where the JAX package uses the per-pixel oracle, whose (pixels x
-Gaussians) arrays do not fit at 1280x720. The viewer
-(--viewer-port, ``view``, ``render-path``) is not ported yet and raises.
+Gaussians) arrays do not fit at 1280x720. ``view`` and ``render-path``
+load a checkpoint the port wrote (``<work-dir>/ckpts/<stage>/last``;
+--num-fg / --num-bg are its capacities, --num-frames its frame count). A
+phase-B window's exposure model is stage 1's and keeps the clip's frame
+count, which is read from the file (the JAX package's CLI cannot load a
+window checkpoint). ``view`` serves PNG frames; ``render-path`` writes
+its video as an animated PNG at ``<out stem>.png`` and prints
+{"video", "frames"}.
 """
 
 from __future__ import annotations
@@ -31,10 +42,6 @@ import argparse
 import json
 import os
 import time
-
-_VIEWER = ("the viewer (vis/viewer.py, vis/render_panel.py, vis/renderer.py)"
-           " is not ported yet")
-
 
 class ScalarWriter:
     """The writer TrainLoop logs to: ``add_scalar`` appends one JSON line
@@ -83,7 +90,7 @@ def _add_train(sub):
     p.add_argument("--no-resume", action="store_true",
                    help="ignore existing stage checkpoints")
     p.add_argument("--viewer-port", type=int, default=None,
-                   help="live training viewer (not ported yet: raises)")
+                   help="serve a live training viewer on this port")
     p.add_argument(
         "--synthetic", action="store_true",
         help="train on a generated synthetic blurry scene instead of a "
@@ -117,9 +124,73 @@ def _add_metrics(sub):
     p.add_argument("--device", default="cuda")
 
 
-def _add_viewer_commands(sub):
-    for name in ("view", "render-path"):
-        sub.add_parser(name, help=f"not ported yet ({_VIEWER})")
+def _add_ckpt_args(p):
+    p.add_argument("--checkpoint", required=True,
+                   help="a port checkpoint: <work-dir>/ckpts/<stage>/last")
+    p.add_argument("--num-frames", type=int, required=True)
+    p.add_argument("--num-fg", type=int, required=True,
+                   help="fg Gaussian capacity of the checkpoint")
+    p.add_argument("--num-bg", type=int, required=True)
+    p.add_argument("--num-motion-bases", type=int, default=10)
+    p.add_argument("--device", default="cuda",
+                   help="torch device (cuda, or cpu for the plain versions)")
+
+
+def _add_view(sub):
+    p = sub.add_parser("view", help="interactive browser viewer")
+    _add_ckpt_args(p)
+    p.add_argument("--port", type=int, default=8890)
+
+
+def _add_render_path(sub):
+    p = sub.add_parser(
+        "render-path",
+        help="render a keyframed camera path to a video (the reference's "
+        "viser render tab); written as an animated PNG",
+    )
+    _add_ckpt_args(p)
+    p.add_argument(
+        "--keyframes", required=True,
+        help="JSON file: [{c2w: 4x4 list, fov?: rad, time?: frame}, ...]",
+    )
+    p.add_argument("--out", required=True,
+                   help="output video path (written at <stem>.png)")
+    p.add_argument("--path-frames", type=int, default=120)
+    p.add_argument("--fps", type=float, default=30.0)
+    p.add_argument("--width", type=int, default=512)
+    p.add_argument("--height", type=int, default=288)
+    p.add_argument("--loop", action="store_true")
+    p.add_argument("--tension", type=float, default=0.0)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser("deblur4dgs_tpu_torch")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    _add_train(sub)
+    _add_metrics(sub)
+    _add_view(sub)
+    _add_render_path(sub)
+    return parser
+
+
+def _load_renderer(args):
+    import torch
+
+    from deblur4dgs_tpu_torch import resolve_device
+    from deblur4dgs_tpu_torch.train.checkpoints import template_state
+    from deblur4dgs_tpu_torch.vis.renderer import Renderer
+
+    resolve_device(args.device)
+    # a phase-B window keeps stage 1's exposure model, whose per-frame
+    # times cover the whole clip: their count comes from the file
+    saved = torch.load(args.checkpoint, map_location="cpu", mmap=True,
+                       weights_only=True)
+    num_move = saved["scene"]["move.time_params"].shape[0]
+    template = template_state(args.num_fg, args.num_bg,
+                              args.num_motion_bases, args.num_frames,
+                              device=args.device, num_move_frames=num_move)
+    return Renderer.init_from_checkpoint(args.checkpoint, template,
+                                         args.num_frames)
 
 
 def _datasets(args):
@@ -156,16 +227,8 @@ def _datasets(args):
 def main(argv=None, stage_callback=None):
     """Runs one subcommand. stage_callback (Python callers only) goes to
     pipeline.train_low: it is called after every finished stage."""
-    parser = argparse.ArgumentParser("deblur4dgs_tpu_torch")
-    sub = parser.add_subparsers(dest="cmd", required=True)
-    _add_train(sub)
-    _add_metrics(sub)
-    _add_viewer_commands(sub)
-    args, rest = parser.parse_known_args(argv)
-    if args.cmd in ("view", "render-path"):
-        raise NotImplementedError(f"{args.cmd}: {_VIEWER}")
-    if rest:
-        parser.error(f"unrecognized arguments: {' '.join(rest)}")
+    parser = build_parser()
+    args = parser.parse_args(argv)
 
     if args.cmd == "train":
         from deblur4dgs_tpu_torch import pipeline as PL
@@ -174,8 +237,6 @@ def main(argv=None, stage_callback=None):
 
         if not args.synthetic and args.data_dir is None:
             parser.error("train: --data-dir is required unless --synthetic")
-        if args.viewer_port is not None:
-            raise NotImplementedError(f"--viewer-port: {_VIEWER}")
         resolve_device(args.device)
         train_ds, val_ds = _datasets(args)
         cfg = PL.PipelineConfig(
@@ -200,9 +261,24 @@ def main(argv=None, stage_callback=None):
             log_every=args.log_every,
         )
         writer = ScalarWriter(os.path.join(args.work_dir, "scalars.jsonl"))
-        _, _, metrics, _ = PL.train_low(train_ds, val_ds, cfg, writer,
-                                        num_phaseB_windows=args.num_windows,
-                                        stage_callback=stage_callback)
+        viewer = None
+        if args.viewer_port is not None:
+            from deblur4dgs_tpu_torch.vis.viewer import TrainingViewer
+
+            viewer = TrainingViewer(
+                len(train_ds), port=args.viewer_port,
+                num_exposure=args.num_exposure, cap=args.tile_cap,
+                work_dir=args.work_dir)
+            viewer.serve_forever(background=True)
+            print(f"live viewer on http://0.0.0.0:{viewer.port}")
+        try:
+            _, _, metrics, _ = PL.train_low(
+                train_ds, val_ds, cfg, writer,
+                num_phaseB_windows=args.num_windows, viewer=viewer,
+                stage_callback=stage_callback)
+        finally:
+            if viewer is not None:
+                viewer.close()
         metrics = {k: float(v) for k, v in metrics.items()}
         print(json.dumps(metrics, indent=2))
         with open(os.path.join(args.work_dir, "metrics.json"), "w") as f:
@@ -223,6 +299,37 @@ def main(argv=None, stage_callback=None):
         print(json.dumps(compute_scene_metrics(
             args.result_dir, args.gt_dir, lpips_fn=lpips_fn, device=dev),
             indent=2))
+
+    elif args.cmd == "view":
+        from deblur4dgs_tpu_torch.vis.viewer import DynamicViewer
+
+        renderer = _load_renderer(args)
+        viewer = DynamicViewer(renderer.render_fn, args.num_frames,
+                               port=args.port)
+        print(f"serving on http://0.0.0.0:{args.port}")
+        viewer.serve_forever(background=False)
+
+    elif args.cmd == "render-path":
+        import numpy as np
+
+        from deblur4dgs_tpu_torch.vis.render_panel import (
+            Keyframe,
+            render_camera_path,
+        )
+
+        renderer = _load_renderer(args)
+        with open(args.keyframes) as f:
+            keyframes = [
+                Keyframe(c2w=np.asarray(k["c2w"], np.float32),
+                         fov=float(k.get("fov", np.pi / 3)),
+                         time=k.get("time"))
+                for k in json.load(f)]
+        frames, video = render_camera_path(
+            renderer.render_fn, keyframes, (args.width, args.height),
+            num_frames=args.path_frames, out_path=args.out, fps=args.fps,
+            loop=args.loop, tension=args.tension,
+            num_scene_frames=args.num_frames)
+        print(json.dumps({"video": video, "frames": int(frames.shape[0])}))
 
 
 if __name__ == "__main__":

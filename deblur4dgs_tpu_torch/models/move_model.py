@@ -95,20 +95,32 @@ def exposure_samples(
     """Sample the exposure window: N residual poses + times.
 
     mode 'uniform' returns all N samples; 'mid' / 'start' / 'end' slice one.
-    Only camera_mode='linear' (the reference default) is ported; the
-    duplicated-knot 'cubic' spline needs lie.se3_cubic_bspline (later
-    slice).
+
+    camera_mode selects the within-window pose interpolation
+    (move_model.py:168-204): 'linear' (reference default) or 'cubic'. The
+    reference's cubic branch cannot actually run — it feeds its TWO control
+    poses into the four-basis-row cubic_bspline_interpolation
+    (spline_utils.py:442-449), a shape mismatch — so we define 'cubic' as
+    the SE(3) B-spline over duplicated knots [start, start, end, end]: a
+    smooth ease between the endpoint poses (see PARITY.md).
+
+    Caveats of the duplicated-knot spline: it evaluates to (5*p0+p1)/6 at
+    u=0 and (p0+5*p1)/6 at u=1, so 'cubic' spans only the middle ~2/3 of
+    the predicted exposure motion (reduced effective blur extent vs
+    'linear'). Its exact-midpoint property — sample N//2 sitting at the
+    true SE(3) midpoint of (p0, p1), which mode='mid' slicing relies on —
+    holds only for ODD num_cameras; use odd num_exposure with
+    camera_mode='cubic'.
     """
-    if camera_mode != "linear":
-        raise NotImplementedError(
-            f"camera_mode={camera_mode!r}: only 'linear' is ported; the "
-            "'cubic' SE(3) B-spline comes with a later port slice"
-        )
     d0, d1 = predict_deltas(model, w2c)
     p0 = lie.se3_exp(d0)
     p1 = lie.se3_exp(d1)
     u = torch.linspace(0.0, 1.0, num_cameras, device=w2c.device)
-    poses = lie.se3_lerp(p0, p1, u)  # (N, 3, 4)
+    if camera_mode == "cubic":
+        knots = torch.stack([p0, p0, p1, p1], dim=0)  # (4, 3, 4)
+        poses = lie.se3_cubic_bspline(knots, u)  # (N, 3, 4)
+    else:
+        poses = lie.se3_lerp(p0, p1, u)  # (N, 3, 4)
 
     dt = frame_delta_t(model, t, stage)
     tf = torch.as_tensor(t, dtype=torch.float32, device=w2c.device)

@@ -322,6 +322,40 @@ def se3_lerp(pose0, pose1, u):
     return torch.cat([R, t[..., None]], dim=-1)
 
 
+def se3_cubic_bspline(poses, u):
+    """Cubic B-spline SE(3) interpolation with 4 control knots: poses
+    (..., 4, 3, 4), u (..., N) in [0, 1] -> (..., N, 3, 4). Translation
+    blended with the B-spline basis; rotation as q0 times the exponentials
+    of the cumulative-basis-scaled adjacent relative rotations
+    (spline_utils.py:411-470)."""
+    uu = u * u
+    uuu = uu * u
+    oos = 1.0 / 6.0
+    ct = torch.stack([
+        oos - 0.5 * u + 0.5 * uu - oos * uuu,
+        4.0 * oos - uu + 0.5 * uuu,
+        oos + 0.5 * u + 0.5 * uu - 0.5 * uuu,
+        oos * uuu,
+    ], dim=-1)  # (..., N, 4)
+    t = torch.einsum("...nk,...ki->...ni", ct, poses[..., 3])
+
+    cr = torch.stack([
+        5.0 * oos + 0.5 * u - 0.5 * uu + oos * uuu,
+        oos + 0.5 * u + 0.5 * uu - 2.0 * oos * uuu,
+        oos * uuu,
+    ], dim=-1)  # (..., N, 3)
+
+    q = rmat_to_quat(poses[..., :3])  # (..., 4, 4)
+    r_adj = quat_log(quat_mul(quat_conj(q[..., :-1, :]), q[..., 1:, :]))
+    # q_t = q0 * exp(c1 r01) * exp(c2 r12) * exp(c3 r23)
+    q_acc = q[..., 0:1, :].expand(cr.shape[:-1] + (4,))
+    for k in range(3):
+        qk = quat_exp(cr[..., k : k + 1] * r_adj[..., k, None, :])
+        q_acc = quat_mul(q_acc, qk)
+    R = quat_to_rmat(q_acc)
+    return torch.cat([R, t[..., None]], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Weighted Procrustes (transforms.py:56-129)
 # ---------------------------------------------------------------------------

@@ -103,9 +103,15 @@ def template_state(
     num_bases: int,
     num_frames: int,
     device="cuda",
+    num_move_frames: int | None = None,
 ) -> TrainState:
     """Zero-filled TrainState with the given capacities (the shape
-    load_checkpoint restores into), built from the run's dimensions."""
+    load_checkpoint restores into), built from the run's dimensions.
+    num_move_frames (default num_frames) sizes the MoveModel's per-frame
+    exposure times: a phase-B window keeps stage 1's MoveModel, whose
+    times cover the whole clip, beside bases of the window's frames (the
+    JAX package's template has no such argument and cannot load a window
+    checkpoint)."""
     dev = resolve_device(device)
 
     def gauss(n, coefs):
@@ -126,8 +132,8 @@ def template_state(
         bg=gauss(num_bg, False) if num_bg else None,
         bases=MotionBases(torch.zeros((num_bases, num_frames, 6), device=dev),
                           torch.zeros((num_bases, num_frames, 3), device=dev)),
-        move=init_move_model(torch.Generator().manual_seed(0), num_frames,
-                             device=dev),
+        move=init_move_model(torch.Generator().manual_seed(0),
+                             num_move_frames or num_frames, device=dev),
     )
     return init_train_state(scene, SceneLRConfig(), OptimizerConfig())
 

@@ -5,7 +5,8 @@ PyTorch port of deblur4dgs_tpu/train/loop.py (the epoch loops of the
 reference's run_training_static.py:174-199 and
 run_training_dynamic.py:285-319): call the train step, run density control
 at its cadence, trap a non-finite loss, log to any writer with an
-``add_scalar(tag, value, step)`` method, checkpoint periodically.
+``add_scalar(tag, value, step)`` method, checkpoint periodically, and
+cooperate with a live viewer (vis/viewer.py::TrainingViewer).
 """
 
 from __future__ import annotations
@@ -77,6 +78,8 @@ def track_batch_from_item(item: dict, start: int = 0,
 
 
 class TrainLoop:
+    viewer = None  # a TrainingViewer (vis/viewer.py) when one is attached
+
     def __init__(
         self,
         state: TrainState,
@@ -100,9 +103,8 @@ class TrainLoop:
         viewer=None,
     ):
         if viewer is not None:
-            raise NotImplementedError(
-                "viewer= (live rendering during training) is not ported yet"
-            )
+            viewer.set_scene(state.scene, num_window_frames)
+            self.viewer = viewer
         self.state = state
         self.ocfg = ocfg
         self.num_window_frames = num_window_frames
@@ -130,9 +132,10 @@ class TrainLoop:
         with open("/proc/self/statm") as f:
             return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e9
 
-    def train_step(self, batch_static, batch_dyn, tracks, batch_reg,
-                   batch4_imgs=None):
-        tic = time.time()
+    def _step(self, batch_static, batch_dyn, tracks, batch_reg,
+              batch4_imgs):
+        """The train step and density control at its cadence; both change
+        the state in place. Returns (loss, aux)."""
         self.state, loss, aux = self.step_fn(
             self.state, self.epoch, batch_static, batch_dyn, tracks,
             batch_reg, batch4_imgs,
@@ -143,8 +146,31 @@ class TrainLoop:
         self.losses.append(loss)
         self._last_aux = aux
         self.global_step += 1
-
         self._maybe_control()
+        return loss, aux
+
+    def train_step(self, batch_static, batch_dyn, tracks, batch_reg,
+                   batch4_imgs=None):
+        tic = time.time()
+        if self.viewer is None:
+            loss, aux = self._step(batch_static, batch_dyn, tracks,
+                                   batch_reg, batch4_imgs)
+        else:
+            # cooperate with the viewer (trainer.py:204-207, :265-269):
+            # honour pause, and hold its lock through the step and any
+            # density-control event, which change the scene in place, so a
+            # render sees the scene before or after them, never between
+            while self.viewer.state.status == "paused":
+                time.sleep(0.05)
+            with self.viewer.lock:
+                loss, aux = self._step(batch_static, batch_dyn, tracks,
+                                       batch_reg, batch4_imgs)
+                self.viewer.set_scene(self.state.scene)
+            b = batch_static or batch_dyn or batch_reg
+            if b is not None:
+                B, H, W = b.imgs.shape[:3]
+                self.viewer.update(self.global_step,
+                                   H * W * B / max(time.time() - tic, 1e-6))
         if self._rss_every and self.global_step % self._rss_every == 0:
             print(f"[rss] {self.work_dir} step {self.global_step} "
                   f"{self._rss_gb():.2f} GB", flush=True)

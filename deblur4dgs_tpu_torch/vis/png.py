@@ -7,15 +7,20 @@ them back for the metrics stage (deblur4dgs_tpu/pipeline.py::
 compute_scene_metrics). No counterpart module in the JAX package.
 
 ``write_png`` writes 8-bit grey, RGB or RGBA images, every row with
-filter 0 (None). ``read_png`` reads 8-bit grey, grey + alpha, RGB and
-RGBA images, non-interlaced, with any of the five row filters, so it reads
-what imageio or PIL write.
+filter 0 (None); ``encode_png`` returns the same bytes (the viewer's
+frames). ``read_png`` reads 8-bit grey, grey + alpha, RGB and RGBA images,
+non-interlaced, with any of the five row filters, so it reads what
+imageio or PIL write. ``write_apng`` / ``read_apng`` write and read
+animated PNGs (the port's videos: the JAX package writes mp4 or gif
+through imageio): whole frames, each replacing the one before, looping
+forever; a plain PNG reader shows the first frame.
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
+from fractions import Fraction
 
 import numpy as np
 
@@ -29,8 +34,9 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
     return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", crc)
 
 
-def write_png(path: str, img: np.ndarray):
-    """Write a uint8 image (H, W), (H, W, 1), (H, W, 3) or (H, W, 4)."""
+def _image_rows(img: np.ndarray) -> tuple[bytes, bytes]:
+    """(IHDR payload, filtered rows) of a uint8 image (H, W), (H, W, 1),
+    (H, W, 3) or (H, W, 4); every row with filter 0."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
         raise TypeError(f"write_png takes uint8 pixels, got {img.dtype}")
@@ -47,11 +53,56 @@ def write_png(path: str, img: np.ndarray):
     rows = np.concatenate(
         [np.zeros((h, 1), np.uint8), np.ascontiguousarray(img).reshape(h, -1)],
         axis=1)  # filter byte 0 before every row
-    header = struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)
+    return struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0), rows.tobytes()
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """The PNG file of a uint8 image (see write_png) as bytes."""
+    header, rows = _image_rows(img)
+    return (_SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(rows)) + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, img: np.ndarray):
+    """Write a uint8 image (H, W), (H, W, 1), (H, W, 3) or (H, W, 4)."""
+    blob = encode_png(img)
     with open(path, "wb") as f:
-        f.write(_SIGNATURE + _chunk(b"IHDR", header)
-                + _chunk(b"IDAT", zlib.compress(rows.tobytes()))
-                + _chunk(b"IEND", b""))
+        f.write(blob)
+
+
+def write_apng(path: str, frames: np.ndarray, fps: float = 10.0):
+    """Write uint8 frames (N, H, W[, C]) as an animated PNG at ``fps``
+    (each frame shown 1/fps s, looping forever)."""
+    frames = np.asarray(frames)
+    if frames.ndim < 3 or frames.shape[0] == 0:
+        raise ValueError(f"write_apng: no frames in shape {frames.shape}")
+    delay = Fraction(1.0 / fps).limit_denominator(0xFFFF)
+    num, den = delay.numerator, delay.denominator
+    if not (0 < num <= 0xFFFF):
+        raise ValueError(f"write_apng: fps {fps} gives no 16-bit delay")
+    header, _ = _image_rows(frames[0])
+    w, h = struct.unpack(">II", header[:8])
+    parts = [_SIGNATURE, _chunk(b"IHDR", header),
+             _chunk(b"acTL", struct.pack(">II", len(frames), 0))]
+    seq = 0
+    for i, frame in enumerate(frames):
+        fh, rows = _image_rows(frame)
+        if fh != header:
+            raise ValueError(f"write_apng: frame {i} differs in shape")
+        # fcTL: sequence, size, offset (0, 0), delay, dispose none, blend
+        # source (the frame replaces the canvas)
+        parts.append(_chunk(b"fcTL", struct.pack(
+            ">IIIIIHHBB", seq, w, h, 0, 0, num, den, 0, 0)))
+        seq += 1
+        data = zlib.compress(rows)
+        if i == 0:
+            parts.append(_chunk(b"IDAT", data))
+        else:
+            parts.append(_chunk(b"fdAT", struct.pack(">I", seq) + data))
+            seq += 1
+    parts.append(_chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(b"".join(parts))
 
 
 def _paeth_row(line: bytearray, prior: bytes, bpp: int):
@@ -100,24 +151,23 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
     return out
 
 
-def read_png(path: str) -> np.ndarray:
-    """A uint8 array (H, W) for grey, else (H, W, C) with C 2, 3 or 4."""
+def _chunks(path: str):
+    """(kind, payload) of every chunk of a PNG file, up to IEND."""
     with open(path, "rb") as f:
         blob = f.read()
     if blob[:8] != _SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
-    pos, idat, header = 8, [], None
+    pos = 8
     while pos < len(blob):
         (n,) = struct.unpack(">I", blob[pos : pos + 4])
         kind = blob[pos + 4 : pos + 8]
-        data = blob[pos + 8 : pos + 8 + n]
+        yield kind, blob[pos + 8 : pos + 8 + n]
         pos += 12 + n
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", data)
-        elif kind == b"IDAT":
-            idat.append(data)
-        elif kind == b"IEND":
+        if kind == b"IEND":
             break
+
+
+def _decode(path: str, header, data: bytes) -> np.ndarray:
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, ctype, _, _, interlace = header
@@ -127,6 +177,47 @@ def read_png(path: str) -> np.ndarray:
                          "read_png reads 8-bit grey / grey-alpha / RGB / "
                          "RGBA, non-interlaced")
     ch = _CHANNELS[ctype]
-    img = _unfilter(zlib.decompress(b"".join(idat)), h, w, ch)
-    img = img.reshape(h, w, ch)
+    img = _unfilter(zlib.decompress(data), h, w, ch).reshape(h, w, ch)
     return img[..., 0] if ch == 1 else img
+
+
+def read_png(path: str) -> np.ndarray:
+    """A uint8 array (H, W) for grey, else (H, W, C) with C 2, 3 or 4. Of
+    an animated PNG, the default image (its IDAT chunks)."""
+    header, idat = None, []
+    for kind, data in _chunks(path):
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", data)
+        elif kind == b"IDAT":
+            idat.append(data)
+    return _decode(path, header, b"".join(idat))
+
+
+def read_apng(path: str) -> tuple[np.ndarray, list[float]]:
+    """Frames (N, H, W[, C]) uint8 and each frame's delay in seconds of an
+    animated PNG whose frames each cover the whole image and replace the
+    canvas (what write_apng writes)."""
+    header, frames, delays, cur = None, [], [], None
+    for kind, data in _chunks(path):
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", data)
+        elif kind == b"fcTL":
+            if cur is not None:
+                frames.append(b"".join(cur))
+            (_, w, h, x, y, num, den, _, blend) = struct.unpack(
+                ">IIIIIHHBB", data)
+            if header is None or (w, h, x, y, blend) != (
+                    header[0], header[1], 0, 0, 0):
+                raise ValueError(f"{path}: read_apng reads whole-frame "
+                                 "frames that replace the canvas")
+            delays.append(num / (den or 100))  # a zero den means 1/100 s
+            cur = []
+        elif kind == b"IDAT" and cur is not None:  # else: not a frame
+            cur.append(data)
+        elif kind == b"fdAT":
+            cur.append(data[4:])  # after its sequence number
+    if cur is not None:
+        frames.append(b"".join(cur))
+    if not frames:
+        raise ValueError(f"{path}: no animation frames")
+    return np.stack([_decode(path, header, f) for f in frames]), delays

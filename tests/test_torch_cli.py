@@ -12,8 +12,9 @@
   * the ``metrics`` subcommand on that run's results equals
     pipeline.compute_scene_metrics; without ``--device`` it raises where
     no card is present;
-  * ``--viewer-port``, ``view`` and ``render-path`` raise
-    NotImplementedError;
+  * ``train --viewer-port``, ``view`` and ``render-path`` without
+    ``--device`` raise where no card is present, before they serve, load
+    or write anything (tests/test_torch_viewer.py runs them on the CPU);
   * the PNG codec both ways against imageio: files imageio writes (grey,
     RGB, RGBA; its encoder picks filters per row) and files encoded here
     with each of the five row filters read back equal; files write_png
@@ -107,16 +108,24 @@ def test_metrics_without_device_raises_without_a_card(run, capsys):
     assert capsys.readouterr().out == ""
 
 
+CKPT = ["--checkpoint", "x", "--num-frames", "8", "--num-fg", "40",
+        "--num-bg", "100"]
+
+
 @pytest.mark.parametrize("argv", [
-    TRAIN + ["--device", "cpu", "--viewer-port", "8890"],
-    ["view", "--checkpoint", "x"],
-    ["render-path", "--checkpoint", "x"],
+    TRAIN + ["--viewer-port", "0"],
+    ["view"] + CKPT,
+    ["render-path", "--keyframes", "kf.json", "--out", "p.mp4"] + CKPT,
 ])
-def test_viewer_raises(argv, tmp_path):
+def test_viewer_raises(argv, tmp_path, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the CPU-only case")
     if argv[0] == "train":
         argv = argv + ["--work-dir", str(tmp_path / "w")]
-    with pytest.raises(NotImplementedError, match="viewer"):
+    with pytest.raises(RuntimeError, match="cuda"):
         cli.main(argv)
+    assert capsys.readouterr().out == ""
+    assert not os.path.exists(tmp_path / "w")
 
 
 def _images():

@@ -32,6 +32,7 @@ from deblur4dgs_tpu_torch.ops import tiling as tt
 from deblur4dgs_tpu_torch.ops.projection import Projected as TProjected
 from deblur4dgs_tpu_torch.train import losses as TL
 from tests.test_torch_models import (
+    compile_once,
     assert_grads_match,
     jax_scene,
     scene_arrays,
@@ -230,7 +231,8 @@ def test_render_sharp_against_reference(case):
         o = jout(s)
         return sum(jnp.sum(o[k] * ws[k]) for k in keys), o
 
-    jg, jo = jax.jit(jax.grad(jloss, has_aux=True))(jax_scene(arrays))
+    js = jax_scene(arrays)
+    jg, jo = compile_once(jax.jit(jax.grad(jloss, has_aux=True)), js)(js)
     for k in keys + ["pred_sharp_img", "exposure_imgs", "exposure_alphas",
                      "poses", "times"]:
         a, b = tout[k].detach().numpy(), np.asarray(jo[k])

@@ -53,6 +53,19 @@ def torch_single_thread():
     torch.set_num_threads(n)
 
 
+# XLA options for compiling the JAX reference steps the port tests build:
+# LLVM's expensive passes off. The code computes the same results bit for
+# bit (measured on the 128x128 stage-2 step: every output and state leaf
+# equal) and compiles in ~20% less CPU time.
+CHEAP_COMPILE = {"xla_llvm_disable_expensive_passes": True}
+
+
+def compile_once(fn, *args):
+    """A jitted JAX function compiled for args with CHEAP_COMPILE (call
+    it with arguments of the same shapes)."""
+    return fn.lower(*args).compile(compiler_options=CHEAP_COMPILE)
+
+
 def keystr(path) -> str:
     """JAX pytree path -> 'fg.means' / 'move.trunk.3.w' style key."""
     parts = []
@@ -272,8 +285,10 @@ class TestMoveModel:
         full = t_es(ts.move, torch.eye(4), 3.0, 5)
         mid = t_es(ts.move, torch.eye(4), 3.0, 5, mode="mid")
         assert torch.equal(mid.poses[0], full.poses[2])
-        with pytest.raises(NotImplementedError):
-            t_es(ts.move, torch.eye(4), 3.0, 5, camera_mode="cubic")
+        cubic = t_es(ts.move, torch.eye(4), 3.0, 5, camera_mode="cubic")
+        cmid = t_es(ts.move, torch.eye(4), 3.0, 5, mode="mid",
+                    camera_mode="cubic")
+        assert torch.equal(cmid.poses[0], cubic.poses[2])
 
     def test_init_move_model_shapes(self):
         m = init_move_model(torch.Generator().manual_seed(0), num_frames=6,

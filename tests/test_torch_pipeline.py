@@ -5,8 +5,11 @@ The 48x32 synthetic scene of tests/test_pipeline_fidelity.py (8 frames,
 tiny_cfg (40 fg / 100 bg, 2 bases, S = 3, cap 256, 30 initial-optim
 iterations, 6 pose iterations), with 3 steps per stage: no density event
 fires (warm-up 2, control every 4). Both packages read one dataset: the
-JAX scene's and dataset's arrays go into the port's adapter unchanged,
-and each use gets fresh adapters, so their random draws run in step. The
+port generates the scene and its dataset (data/synthetic.py, held to the
+JAX package's generator by tests/test_torch_synthetic.py; ~1 s here
+against ~15 s through the JAX oracle), whose arrays go into the JAX
+package's adapter unchanged, and each use gets fresh adapters, so their
+random draws run in step. The
 JAX side runs with use_pallas=False (the JAX suite's own way of running
 the pipeline on the CPU, as tests/test_torch_loop.py does), the port with
 device="cpu" (the kernels' plain twins).
@@ -59,13 +62,14 @@ from deblur4dgs_tpu import pipeline as JPL
 from deblur4dgs_tpu.configs import OptimizerConfig as JOptimizerConfig
 from deblur4dgs_tpu.configs import RenderConfig as JRenderConfig
 from deblur4dgs_tpu.data import synthetic as js
+from deblur4dgs_tpu.models.gaussians import Gaussians as JGaussians
+from deblur4dgs_tpu.models.motion_bases import MotionBases as JMotionBases
 from deblur4dgs_tpu.train import init as JI
 from deblur4dgs_tpu_torch import configs as tcfg
 from deblur4dgs_tpu_torch import pipeline as TPL
 from deblur4dgs_tpu_torch.convert import scene_from_numpy, scene_to_numpy
 from deblur4dgs_tpu_torch.data import synthetic as ts
 from deblur4dgs_tpu_torch.data.observations import TrackObservations
-from deblur4dgs_tpu_torch.models.gaussians import Gaussians
 from deblur4dgs_tpu_torch.models.motion_bases import MotionBases
 from deblur4dgs_tpu_torch.train.init import round_capacity
 from deblur4dgs_tpu_torch.train.optimizers import param_label
@@ -117,34 +121,39 @@ def _t(x):
     return None if x is None else torch.as_tensor(np.asarray(x))
 
 
-def port_synthetic_scene(jscene):
+def _j(x):
+    return None if x is None else jnp.asarray(x.detach().cpu().numpy())
+
+
+def jax_synthetic_scene(tscene):
+    """The JAX package's SyntheticScene holding the port scene's arrays."""
     def gauss(g):
-        return Gaussians(*(_t(getattr(g, f)) for f in (
+        return JGaussians(*(_j(getattr(g, f)) for f in (
             "means", "quats", "scales", "colors", "opacities",
             "motion_coefs", "alive")))
 
-    return ts.SyntheticScene(
-        fg=gauss(jscene.fg), bg=gauss(jscene.bg),
-        bases=MotionBases(_t(jscene.bases.rots), _t(jscene.bases.transls)),
-        w2cs=_t(jscene.w2cs), Ks=_t(jscene.Ks), img_wh=tuple(jscene.img_wh),
-        exposure=float(jscene.exposure), exp_deltas=_t(jscene.exp_deltas))
+    return js.SyntheticScene(
+        fg=gauss(tscene.fg), bg=gauss(tscene.bg),
+        bases=JMotionBases(_j(tscene.bases.rots), _j(tscene.bases.transls)),
+        w2cs=_j(tscene.w2cs), Ks=_j(tscene.Ks), img_wh=tuple(tscene.img_wh),
+        exposure=float(tscene.exposure), exp_deltas=_j(tscene.exp_deltas))
 
 
 @pytest.fixture(scope="module")
 def data():
-    jscene = js.make_scene(seed=0, num_fg=60, num_bg=150, num_frames=8,
-                           img_wh=(48, 32))
-    jdata = js.generate_dataset(jscene, num_blur_samples=3, num_tracks=40)
+    tscene = ts.make_scene(seed=0, num_fg=60, num_bg=150, num_frames=8,
+                           img_wh=(48, 32), device="cpu")
+    tdata = ts.generate_dataset(tscene, num_blur_samples=3, num_tracks=40)
     # 0.02 of noise on the 3D tracks (tests/test_torch_init.py's
     # `occlude`): the exact tracks fit the motion bases to rounding level,
     # where the initial optimisation's L1 gradient signs are noise in
     # either package
-    noise = np.random.default_rng(5).normal(size=jdata.tracks_3d.shape)
-    jdata = jdata._replace(tracks_3d=jnp.asarray(
-        np.asarray(jdata.tracks_3d) + 0.02 * noise.astype(np.float32)))
-    tdata = ts.SyntheticDataset(**{k: np.asarray(getattr(jdata, k))
+    noise = np.random.default_rng(5).normal(size=tdata.tracks_3d.shape)
+    tdata = tdata._replace(tracks_3d=(
+        tdata.tracks_3d + 0.02 * noise).astype(np.float32))
+    jdata = js.SyntheticDataset(**{k: jnp.asarray(getattr(tdata, k))
                                    for k in ts.SyntheticDataset._fields})
-    return jscene, jdata, port_synthetic_scene(jscene), tdata
+    return jax_synthetic_scene(tscene), jdata, tscene, tdata
 
 
 def adapters(data, split="train"):

@@ -52,6 +52,7 @@ from tests.golden_utils import build_seeded_state_dict, load_manifest
 from tests.test_torch_dense import K48
 from tests.test_torch_models import (
     NUM_FRAMES,
+    compile_once,
     jax_scene,
     scene_arrays,
     torch_single_thread,  # noqa: F401
@@ -202,8 +203,9 @@ def flow_steps(nets):
            _wrap(JT.FrameBatch, dyn, jnp.asarray),
            _wrap(JT.TrackBatch, tracks, jnp.asarray),
            _wrap(JT.FrameBatch, reg, jnp.asarray), jnp.asarray(batch4))
-    _, jl, ja = jstep(JT.init_train_state(js, lr, ocfg), jnp.asarray(25),
-                      *jin)
+    jstate = JT.init_train_state(js, lr, ocfg)
+    _, jl, ja = compile_once(jstep, jstate, jnp.asarray(25), *jin)(
+        jstate, jnp.asarray(25), *jin)
     tin = (_wrap(TT.FrameBatch, static, torch.as_tensor),
            _wrap(TT.FrameBatch, dyn, torch.as_tensor),
            _wrap(TT.TrackBatch, tracks, torch.as_tensor),

@@ -23,6 +23,7 @@ from deblur4dgs_tpu.ops.projection import Projected as JProjected
 from deblur4dgs_tpu_torch.ops import rasterize as tr
 from deblur4dgs_tpu_torch.ops import tiling as tt
 from deblur4dgs_tpu_torch.ops.projection import Projected as TProjected
+from tests.test_torch_models import compile_once
 from tests.test_torch_models import torch_single_thread  # noqa: F401
 from tests.test_torch_tiling import random_window
 
@@ -188,7 +189,8 @@ def test_window_buckets_against_reference():
         o = j_out(tbl)
         return sum(jnp.sum(o[k] * ws[k]) for k in keys), o
 
-    gj, jout = jax.jit(jax.grad(jloss, has_aux=True))(jtbl)
+    gj, jout = compile_once(jax.jit(jax.grad(jloss, has_aux=True)),
+                            jtbl)(jtbl)
     for k in keys:
         a, b = tout[k].detach().numpy(), np.asarray(jout[k])
         assert a.shape == b.shape, k

@@ -29,6 +29,7 @@ from deblur4dgs_tpu_torch.convert import scene_from_numpy
 from deblur4dgs_tpu_torch.models import scene as tscene
 from deblur4dgs_tpu_torch.ops import rasterize as tr
 from tests.test_torch_models import (
+    compile_once,
     K128,
     assert_grads_match,
     jax_scene,
@@ -194,7 +195,8 @@ def test_render_scatter_against_reference(monkeypatch):
                           (128, 128), **RENDER_KW)
         return sum(jnp.sum(o[k] * ws[k]) for k in LOSS_KEYS), o
 
-    jg, jo = jax.jit(jax.grad(jloss, has_aux=True))(jax_scene(arrays))
+    js = jax_scene(arrays)
+    jg, jo = compile_once(jax.jit(jax.grad(jloss, has_aux=True)), js)(js)
     tr.LAUNCHES["window_scatter_fwd"] = 0
     ts, tout = port_render(monkeypatch, arrays, True, ws)
     assert tr.LAUNCHES["window_scatter_fwd"] == 0  # CPU tensors: twins

@@ -28,6 +28,7 @@ from deblur4dgs_tpu_torch.ops import tiling as tt
 from deblur4dgs_tpu_torch.ops.projection import Projected as TProjected
 from tests.test_torch_dense import K48, H48, W48, assert_rel
 from tests.test_torch_models import (
+    compile_once,
     K128,
     assert_grads_match,
     jax_scene,
@@ -150,7 +151,8 @@ def test_render_split_window_against_reference(case):
                           **jkw)
         return sum(jnp.sum(o[k] * ws[k]) for k in keys), o
 
-    jg, jo = jax.jit(jax.grad(jloss, has_aux=True))(jax_scene(arrays))
+    js = jax_scene(arrays)
+    jg, jo = compile_once(jax.jit(jax.grad(jloss, has_aux=True)), js)(js)
     for k in keys + ["pred_sharp_img", "exposure_imgs", "exposure_alphas",
                      "exposure_masks"]:
         a, b = tout[k].detach().numpy(), np.asarray(jo[k])

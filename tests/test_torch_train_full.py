@@ -10,9 +10,17 @@
 
 Two steps each at epoch 25 (> 20: the pose-net gate and the multires
 guide's gate are open), both packages starting from identical parameters;
-the JAX steps run as their suite runs them on the CPU (Pallas kernels in
-interpret mode). The bars are tests/test_torch_train_step.py's: loss and
-every aux value rtol 1e-5 after every step; then DensityStats (counts and
+the JAX steps run through the JAX package's plain XLA compositors
+(use_pallas=False, the JAX suite's own way of running whole stages on the
+CPU, as tests/test_torch_{loop,pipeline,pwcnet}.py run them): at these
+sizes no tile holds more than one 128-Gaussian chunk, so the Pallas
+kernels' chunk-level early stop never fires and both compositors compute
+the same function; the port's compositors are held against the Pallas
+kernels in interpret mode on their own (tests/test_torch_{rasterize,
+split,dense,scatter}.py), and compiling the Pallas kernels into these
+whole steps took 2.5x as long (80 s against 32 s for the stage-2 step).
+The bars are tests/test_torch_train_step.py's: loss and every aux value
+rtol 1e-5 after every step; then DensityStats (counts and
 radii equal, gradient norms rtol 1e-4), Adam moments (1e-3 of the tensor's
 max |moment|), the MultiSteps accumulators of the MoveModel groups, and
 every parameter (1e-5 + 1e-3 * steps * lr where the second moment carries
@@ -41,6 +49,7 @@ from tests.test_torch_dense import K48
 from tests.test_torch_models import (
     K128,
     NUM_FRAMES,
+    compile_once,
     jax_scene,
     jax_to_numpy,
     scene_arrays,
@@ -127,7 +136,8 @@ def runs(request):
     jstate = JT.init_train_state(js, lr, ocfg)
     jstep = JT.make_train_step(
         j_make_opt(js, lr, ocfg), lcfg,
-        RenderConfig(num_exposure=S, tile_cap=CAP), cfg["stage"], NUM_FRAMES,
+        RenderConfig(num_exposure=S, tile_cap=CAP, use_pallas=False),
+        cfg["stage"], NUM_FRAMES,
         **flags,
     )
     jin = (_wrap(JT.FrameBatch, static, jnp.asarray),
@@ -150,6 +160,7 @@ def runs(request):
            _wrap(TT.FrameBatch, reg, torch.as_tensor),
            None if batch4 is None else torch.as_tensor(batch4))
 
+    jstep = compile_once(jstep, jstate, jnp.asarray(EPOCH), *jin)
     per_step = []
     for _ in range(STEPS):
         jstate, jl, ja = jstep(jstate, jnp.asarray(EPOCH), *jin)

@@ -46,6 +46,7 @@ from deblur4dgs_tpu_torch.train.optimizers import param_label
 from tests.test_torch_models import (
     K128,
     NUM_FRAMES,
+    compile_once,
     jax_scene,
     jax_to_numpy,
     scene_arrays,
@@ -111,6 +112,8 @@ def runs():
     ttr = TT.TrackBatch(*map(torch.as_tensor, tracks))
 
     per_step = []
+    jstep = compile_once(jstep, jstate, jnp.asarray(25), None, jb, jtr,
+                         None, None)
     for _ in range(STEPS):
         jstate, jl, ja = jstep(jstate, jnp.asarray(25), None, jb, jtr, None,
                                None)
