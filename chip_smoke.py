@@ -145,6 +145,23 @@ together), then:
      stage-2 step with flow_fn, timed beside phase c's, profiled (top
      kernels), and the PWC-Net's forward and correlations alone at its
      shapes ({"flow": ...}).
+ 16. the plain path (phase_plain_path): render(use_pallas=False), the
+     reference's plain compositors without the early stop, against the
+     kernels on the card (the bucketed window and the sharp dense render
+     at 128x128, the split path at 64x48): values and gradients within
+     FWD_TOL / BWD_TOL, no kernel launched on the plain path;
+ 17. multiple devices (phase_multidevice): the bench-shape stage-2 step
+     on several ranks (parallel/mesh.py), each rank a process of this
+     script (``--multidevice-rank``): one rank per card over NCCL where
+     two or more cards are visible, else two ranks on card 0 over gloo
+     (all-reduce of CUDA tensors, all-gather staged through host memory;
+     NCCL refuses two ranks on one device); tile_mesh and
+     subframe_sharding (6 + 5 sub-frames) each held to its one-rank
+     reference, run by a one-rank NCCL job (the unsharded step; the step
+     subframe-sharded over one rank): the loss to rel 1e-4, every
+     parameter to 5e-4 of its max |param|, the ranks' TrainStates equal
+     bit for bit, each rank's launches exact; per-rank step medians and
+     the transport ({"multidevice": ...} line).
 
 Bounds count what the run's data needs: of each payload only the slots
 walked before each row's stop chunk (for K5: those slots' index entries
@@ -156,11 +173,12 @@ alpha to every pair up to the stop chunks instead.
 
 Prints a {"kernels": [...]} JSON line (each kernel's ``launches`` on
 its own driven path, ``launches_pipeline`` in phase_pipeline's first
-call and, for K5, ``launches_render_path`` in phase_viewer's render-path
-call), the step times, {"eval": ...}, {"pipeline": ...}, {"viewer": ...}
-and {"flow": ...} JSON lines, the card line, and last {"ok": true,
-"device": {...}}. Any
-failed check raises (exit != 0).
+call, ``launches_multidevice_per_rank`` in phase_multidevice's compared
+steps and, for K5, ``launches_render_path`` in phase_viewer's
+render-path call), the step times, {"eval": ...}, {"pipeline": ...},
+{"viewer": ...}, {"flow": ...} and {"multidevice": ..., "plain_path":
+...} JSON lines, the card line, and last {"ok": true, "device": {...}}.
+Any failed check raises (exit != 0).
 Exits non-zero without a result when no CUDA card is visible or when the
 package is not next to this file. Imports no JAX.
 """
@@ -569,7 +587,9 @@ def step_args(kind, static, dyn, tracks, reg, b4):
             b4 if f.get("has_batch4") else None)
 
 
-def make_step(kind, scene, T, rcfg, flow_fn=None):
+def make_step(kind, scene, T, rcfg, flow_fn=None, **shard):
+    """(state, step) of ``kind``; ``shard``: make_train_step's
+    subframe_sharding / tile_mesh."""
     from deblur4dgs_tpu_torch.configs import (
         LossesConfig, OptimizerConfig, SceneLRConfig)
     from deblur4dgs_tpu_torch.train.optimizers import make_optimizer
@@ -582,7 +602,8 @@ def make_step(kind, scene, T, rcfg, flow_fn=None):
     stage = STEP_KINDS[kind]["stage"]
     return (init_train_state(scene, lr, ocfg),
             make_train_step(make_optimizer(scene, lr, ocfg), LossesConfig(),
-                            rcfg, stage, T, flow_fn=flow_fn, **flags))
+                            rcfg, stage, T, flow_fn=flow_fn, **flags,
+                            **shard))
 
 
 def bench_scene_batches(dev):
@@ -2916,12 +2937,278 @@ def phase_flow(tr, errs, rates, card, s2_median_s):
             "correlation_ms": corr_ms}
 
 
+# ---------------------------------------------------------------------------
+# Multiple devices (phase_multidevice) and the plain path (phase_plain_path)
+# ---------------------------------------------------------------------------
+
+MD_WORK = os.path.join(HERE, "build", "chip_multidevice")
+# timed steps per mode after the compared first one (a sub-frame-sharded
+# step binned per view takes ~8-10 s on one card: phase_multidevice)
+MD_TIMED = {"unsharded": 2, "tile": 2, "sub": 1}
+MD_LOSS_REL = 1e-4  # tests/test_tile_sharding.py:157
+MD_PARAM_REL = 5e-4  # tests/test_tile_sharding.py:163, of max |param|
+MD_TIMEOUT = 300  # seconds per launch of ranks
+
+
+def md_rank_main(argv):
+    """One rank of phase_multidevice: ``chip_smoke.py --multidevice-rank R
+    WORLD PORT BACKEND DEVICE JOB``. JOB "ref" (one rank, NCCL) runs the
+    unsharded stage-2 step and the same step subframe-sharded over its
+    one-rank mesh; "sharded" runs it with tile_mesh and with
+    subframe_sharding over all ranks. Each mode starts from the bench
+    scene: the first step is the one compared (its TrainState written to
+    MD_WORK, its launches counted), then MD_TIMED[mode] timed steps.
+    Prints one {"md_rank": ...} JSON line."""
+    rank, world, port = (int(a) for a in argv[:3])
+    backend, device, job = argv[3:6]
+    import torch.distributed as dist
+
+    from deblur4dgs_tpu_torch.convert import train_state_to_numpy
+    from deblur4dgs_tpu_torch.ops import cuda_build
+    from deblur4dgs_tpu_torch.ops import rasterize as tr
+    from deblur4dgs_tpu_torch.parallel import mesh as pmesh
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # deterministic kernels, so that the ranks' replicated work agrees
+    # bit for bit (warn_only: a kernel without a deterministic version
+    # shows as a difference between the ranks' states)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cuda_build.load()
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    mesh = pmesh.global_mesh(device=dev)
+    sub = {"subframe_sharding": pmesh.subframe_sharding(mesh)}
+    modes = ({"unsharded": {}, "sub": sub} if job == "ref" else
+             {"tile": {"tile_mesh": mesh._replace(axis="tile")}, "sub": sub})
+    out = {"rank": rank, "device": device, "transport": mesh.transport,
+           "modes": {}}
+    for mode, kw in modes.items():
+        scene, batches = bench_scene_batches(dev)
+        state, step = make_step("stage2", scene, NUM_FRAMES, bench_rcfg(),
+                                **kw)
+        args = step_args("stage2", *batches)
+        zero_launches(tr)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, loss, _ = step(state, EPOCH, *args)
+        torch.cuda.synchronize()
+        first_s = time.time() - t0
+        launches = {k: v for k, v in tr.LAUNCHES.items() if v}
+        np.savez(os.path.join(MD_WORK, f"{job}_{mode}_rank{rank}.npz"),
+                 loss=np.float32(float(loss)),
+                 **train_state_to_numpy(state))
+        times = []
+        for _ in range(MD_TIMED[mode]):
+            t0 = time.time()
+            state, loss, _ = step(state, EPOCH, *args)
+            torch.cuda.synchronize()
+            times.append(time.time() - t0)
+        out["modes"][mode] = {"first_step_s": first_s, "launches": launches,
+                              "step_ms": [t * 1e3 for t in times],
+                              "finite": bool(np.isfinite(float(loss)))}
+        del state, step, scene, batches
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    print(json.dumps({"md_rank": out}))
+    return 0
+
+
+def md_launch(world, backend, devices, job):
+    """Run the ranks of one md_rank_main job in parallel; their JSON lines
+    (rank order). Stops them all at MD_TIMEOUT."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multidevice-rank",
+         str(r), str(world), str(port), backend, devices[r], job],
+        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MD_TIMEOUT))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    res = []
+    for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"multidevice {job} rank {r} failed "
+              f"({p.returncode}):\n{so[-2000:]}\n{se[-4000:]}")
+        line = [ln for ln in so.splitlines() if ln.startswith('{"md_rank"')]
+        check(len(line) == 1, f"multidevice {job} rank {r}: no result")
+        res.append(json.loads(line[0])["md_rank"])
+    return res
+
+
+def md_state(job, mode, rank):
+    return dict(np.load(os.path.join(MD_WORK, f"{job}_{mode}_rank{rank}.npz")))
+
+
+def phase_multidevice(tr, card):
+    """The stage-2 step at the bench shape on several ranks (parallel/
+    mesh.py): one rank per card over NCCL where two or more cards are
+    visible, else two ranks on card 0 over gloo (NCCL refuses two ranks on
+    one device); and a one-rank NCCL job, whose unsharded step is
+    tile_mesh's reference and whose one-rank subframe-sharded step is
+    subframe_sharding's (per-sub-frame binning orders each view by its own
+    depths, the shared binning by the window's front-most ones, so the
+    unsharded step composites some overlaps in another order). Each mode's
+    first step from the bench scene: the loss to MD_LOSS_REL, every
+    parameter to MD_PARAM_REL of its max |param|, the ranks' TrainStates
+    equal bit for bit, each rank's launches exact."""
+    n_cards = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+    os.makedirs(MD_WORK, exist_ok=True)
+    if n_cards >= 2:
+        world, backend = n_cards, "nccl"
+        devices = [f"cuda:{i}" for i in range(n_cards)]
+    else:
+        world, backend = 2, "gloo"
+        devices = ["cuda:0"] * 2
+    t0 = time.time()
+    ref = md_launch(1, "nccl", ["cuda:0"], "ref")[0]
+    ranks = md_launch(world, backend, devices, "sharded")
+    print(f"# multidevice: {world} ranks on {devices} over "
+          f"{ranks[0]['transport']}; references on one rank over "
+          f"{ref['transport']}; card {card}")
+    nb = n_buckets()
+    S = NUM_EXPOSURE
+    out = {"world": world, "devices": devices, "backend": backend,
+           "transport": ranks[0]["transport"], "card": card, "modes": {}}
+    for mode, ref_mode in (("tile", "unsharded"), ("sub", "sub")):
+        want_ref = ({"window_fwd": 4 * nb, "window_bwd": 4 * nb,
+                     "dense_fwd": 1, "dense_bwd": 1} if mode == "tile" else
+                    {"dense_fwd": 4 * S + 1, "dense_bwd": 4 * S + 1})
+        got = ref["modes"][ref_mode]["launches"]
+        check(got == want_ref, f"multidevice ref {ref_mode}: launches {got}, "
+              f"expected {want_ref}")
+        a = md_state("ref", ref_mode, 0)
+        loss_ref = float(a["loss"])
+        worst_rel, worst_key = 0.0, None
+        for r, rk in enumerate(ranks):
+            m = rk["modes"][mode]
+            check(m["finite"], f"multidevice {mode} rank {r}: non-finite")
+            if mode == "tile":  # every rank composites its rows of each
+                want = want_ref  # bucket; the reg render is not sharded
+            else:  # its block of the 11 sub-frames, and the reg's one
+                lo, hi = (min(r * -(-S // world), S),
+                          min((r + 1) * -(-S // world), S))
+                n = 4 * (hi - lo) + (1 if r == 0 else 0)
+                want = {"dense_fwd": n, "dense_bwd": n}
+            check(m["launches"] == want, f"multidevice {mode} rank {r}: "
+                  f"launches {m['launches']}, expected {want}")
+            b = md_state("sharded", mode, r)
+            check(set(a) == set(b), f"multidevice {mode}: state keys differ")
+            rel = abs(float(b["loss"]) - loss_ref) / abs(loss_ref)
+            check(rel <= MD_LOSS_REL, f"multidevice {mode} rank {r}: loss "
+                  f"{float(b['loss'])} against {loss_ref} (rel {rel:.3e})")
+            for k in a:
+                if not k.startswith("scene/"):
+                    continue
+                scale = float(np.abs(a[k]).max()) + 1e-8
+                d = float(np.abs(b[k] - a[k]).max()) / scale
+                if d > worst_rel:
+                    worst_rel, worst_key = d, k
+            if r:
+                b0 = md_state("sharded", mode, 0)
+                diff = [k for k in b0 if not np.array_equal(b0[k], b[k])]
+                check(not diff, f"multidevice {mode}: rank {r}'s TrainState "
+                      f"differs from rank 0's in {diff[:5]}")
+        check(worst_rel <= MD_PARAM_REL, f"multidevice {mode}: parameter "
+              f"{worst_key} rel {worst_rel:.3e}")
+        per_rank = [statistics.median(rk["modes"][mode]["step_ms"])
+                    for rk in ranks]
+        ref_ms = statistics.median(ref["modes"][ref_mode]["step_ms"])
+        out["modes"][mode] = {
+            "reference": ref_mode, "loss_rel": abs(float(md_state(
+                "sharded", mode, 0)["loss"]) - loss_ref) / abs(loss_ref),
+            "param_rel": worst_rel, "step_ms_median_per_rank": per_rank,
+            "reference_step_ms_median": ref_ms,
+            "launches_per_rank": [rk["modes"][mode]["launches"]
+                                  for rk in ranks],
+            "first_step_s_per_rank": [rk["modes"][mode]["first_step_s"]
+                                      for rk in ranks]}
+        loss_rel = out["modes"][mode]["loss_rel"]
+        print(f"# multidevice {mode}: loss rel {loss_rel:.3e}, parameters "
+              f"rel {worst_rel:.3e} ({worst_key}), ranks "
+              f"equal bit for bit; step median per rank (ms) "
+              f"{[round(x, 3) for x in per_rank]} against {ref_ms:.3f} on one "
+              f"rank ({ref_mode}); launches per rank "
+              f"{out['modes'][mode]['launches_per_rank']}; card {card}")
+    out["phase_s"] = time.time() - t0
+    return out
+
+
+def phase_plain_path(tr):
+    """render(use_pallas=False), the reference's plain compositors without
+    the early stop, against the kernel path on the card at 128x128 (the
+    bucketed window and the sharp dense render) and 64x48 (the split
+    path): values to FWD_TOL, the gradients of a weighted sum of the
+    outputs to BWD_TOL of each leaf's max |g|; the plain path launches no
+    kernel."""
+    from deblur4dgs_tpu_torch.convert import scene_from_numpy
+    from deblur4dgs_tpu_torch.models.scene import render
+
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for wh, mode in (((128, 128), "blury"), ((64, 48), "blury"),
+                     ((128, 128), "mid")):
+        arrays, inputs = small_inputs(wh, "dynamic")
+        _, w2cs, Ks = inputs[1][:3]
+        keys = ["img", "acc", "mask"] + (["depth"] if mode == "blury" else [])
+        res = {}
+        for use_pallas in (True, False):
+            scene = scene_from_numpy(arrays, device=DEV)
+            zero_launches(tr)
+            out = render(scene, 5.0, torch.as_tensor(w2cs[0], device=DEV),
+                         torch.as_tensor(Ks[0], device=DEV), wh, mode=mode,
+                         return_mask=True, return_depth=mode == "blury",
+                         num_exposure=3, cap=256, use_pallas=use_pallas)
+            g = torch.Generator(device=DEV).manual_seed(7)
+            loss = sum((out[k] * torch.randn(out[k].shape, generator=g,
+                                             device=DEV)).sum() for k in keys)
+            loss.backward()
+            torch.cuda.synchronize()
+            n = sum(tr.LAUNCHES.values())
+            check((n == 0) == (not use_pallas), f"plain path {wh} {mode}: "
+                  f"{n} kernel launches with use_pallas={use_pallas}")
+            res[use_pallas] = ({k: out[k].detach() for k in keys}, {
+                name: p.grad.detach().clone()
+                for name, p in scene.named_parameters() if p.grad is not None})
+        (ok, gk), (op, gp) = res[True], res[False]
+        for k in keys:
+            e = float((ok[k] - op[k]).abs().max())
+            rel = e / max(1.0, float(op[k].abs().max()))
+            worst["fwd"] = max(worst["fwd"], rel)
+            check(rel <= FWD_TOL, f"plain path {wh} {mode} {k}: {rel:.3e}")
+        check(set(gk) == set(gp) and gp, f"plain path {wh} {mode}: grads")
+        for name in gp:
+            rel = float((gk[name] - gp[name]).abs().max()) / (
+                float(gp[name].abs().max()) + 1e-12)
+            worst["bwd"] = max(worst["bwd"], rel)
+            check(rel <= BWD_TOL, f"plain path {wh} {mode} grad {name}: "
+                  f"{rel:.3e}")
+    print(f"# plain path (use_pallas=False) against the kernels: forward "
+          f"rel {worst['fwd']:.3e}, gradients rel {worst['bwd']:.3e}")
+    return worst
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible (torch.cuda.is_available() "
               "is False)", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if sys.argv[1:2] == ["--multidevice-rank"]:
+        return md_rank_main(sys.argv[2:])
     try:
         from deblur4dgs_tpu_torch.ops import cuda_build
         from deblur4dgs_tpu_torch.ops import rasterize as tr
@@ -3028,6 +3315,8 @@ def main():
     t0 = time.time()
     flow = phase_flow(tr, errs, rates, card, statistics.median(s2_times))
     flow["phase_s"] = time.time() - t0
+    plain_path = phase_plain_path(tr)
+    md = phase_multidevice(tr, card)
 
     kernels = []
     full = "stage-2 step 1280x720"
@@ -3070,6 +3359,9 @@ def main():
             kernels[-1]["instances"] = {  # the instances it may run
                 "generic" if n == 3 else f"nchan {n}": v[d]
                 for n, v in by_n.items()}
+            kernels[-1]["launches_multidevice_per_rank"] = {
+                mode: [n.get(k, 0) for n in m["launches_per_rank"]]
+                for mode, m in md["modes"].items()}
             if kind == "dense":  # the viewer's render-path frames
                 kernels[-1]["launches_render_path"] = \
                     view["render_path"]["launches"][k]
@@ -3112,6 +3404,7 @@ def main():
     print(json.dumps({"pipeline": pipe}))
     print(json.dumps({"viewer": view}))
     print(json.dumps({"flow": flow}))
+    print(json.dumps({"multidevice": md, "plain_path": plain_path}))
     for e in pipe["stages"]:
         if e["steps_ms"]:
             print(f"# pipeline stage {e['stage']}: {e['s']:.3f} s, step "
@@ -3126,6 +3419,8 @@ def main():
           f"{view['render_path']['k5_device_ms_per_frame']:.3f} ms of device "
           f"time per frame; viewer /render at {VIEW_SMALL_WH}: median "
           f"{statistics.median(view['request_ms']):.3f} ms; card {card}")
+    print(f"# multidevice phase {md['phase_s']:.1f} s over {md['transport']}"
+          f"; card {card}")
     print(f"# total run {time.time() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

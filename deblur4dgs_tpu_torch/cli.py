@@ -16,8 +16,12 @@ four):
       --num-frames T --num-fg N --num-bg M --keyframes kf.json \\
       --out path.mp4 [--device cuda]
 
-``--device`` (default cuda; no silent fallback to the CPU) takes the place
-of the JAX package's ``--no-pallas``. Scalars go to
+``--device`` (default cuda; no silent fallback to the CPU) says where
+everything runs. ``--no-pallas`` (train) composites every render with the
+reference's plain compositors without the early stop (plain PyTorch, on
+--device) instead of the hand-written kernels (their plain twins on the
+CPU), as the JAX package's flag swaps its Pallas kernels for plain XLA.
+Scalars go to
 ``<work-dir>/scalars.jsonl``, one JSON object per line. The synthetic
 scene's size flags (--synthetic-num-fg, --synthetic-num-bg,
 --synthetic-tracks) are the port's: their defaults give the JAX package's
@@ -73,6 +77,9 @@ def _add_train(sub):
     p.add_argument("--steps-per-epoch", type=int, default=24)
     p.add_argument("--num-exposure", type=int, default=11)
     p.add_argument("--tile-cap", type=int, default=1024)
+    p.add_argument("--no-pallas", action="store_true",
+                   help="composite with the plain compositors without the "
+                        "early stop instead of the kernels")
     p.add_argument("--device", default="cuda",
                    help="torch device (cuda, or cpu for the plain versions)")
     p.add_argument("--seed", type=int, default=0)
@@ -255,7 +262,8 @@ def main(argv=None, stage_callback=None):
             lpips_weights=args.lpips_weights,
             resume=not args.no_resume,
             render=RenderConfig(num_exposure=args.num_exposure,
-                                tile_cap=args.tile_cap),
+                                tile_cap=args.tile_cap,
+                                use_pallas=not args.no_pallas),
             seed=args.seed,
             device=args.device,
             log_every=args.log_every,
@@ -268,7 +276,7 @@ def main(argv=None, stage_callback=None):
             viewer = TrainingViewer(
                 len(train_ds), port=args.viewer_port,
                 num_exposure=args.num_exposure, cap=args.tile_cap,
-                work_dir=args.work_dir)
+                use_pallas=not args.no_pallas, work_dir=args.work_dir)
             viewer.serve_forever(background=True)
             print(f"live viewer on http://0.0.0.0:{viewer.port}")
         try:

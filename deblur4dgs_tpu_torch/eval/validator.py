@@ -60,6 +60,7 @@ def make_pose_opt_fn(
     eta_min: float = 1e-4,
     num_exposure: int = 11,
     cap: int = 512,
+    use_pallas: bool = True,
 ):
     """Build a (scene, t, w2c, K, gt_img) -> (img, refined_w2c, losses
     (num_iters,)) test-time pose refiner."""
@@ -68,7 +69,7 @@ def make_pose_opt_fn(
         w2c_t = _refined_w2c(w2c, R, T)
         out = render(
             scene, t, w2c_t, K, img_wh, mode="mid", stage="second",
-            num_exposure=num_exposure, cap=cap,
+            num_exposure=num_exposure, cap=cap, use_pallas=use_pallas,
         )
         return out["img"], w2c_t
 
@@ -126,13 +127,13 @@ class Validator:
 
     @torch.no_grad()
     def _render_sharp(self, t, w2c, K, img_wh, num_exposure, cap,
-                      return_depth=False, return_mask=False,
+                      use_pallas, return_depth=False, return_mask=False,
                       bg_only=False):
         dev = _scene_device(self.scene)
         return render(
             self.scene, float(t), _on(w2c, dev), _on(K, dev), img_wh,
             mode="mid", stage="second", num_exposure=num_exposure, cap=cap,
-            return_depth=return_depth,
+            use_pallas=use_pallas, return_depth=return_depth,
             return_mask=return_mask, bg_only=bg_only,
         )
 
@@ -168,13 +169,14 @@ class Validator:
 
     def validate_frame(
         self, t, w2c, K, gt_img, fg_mask, valid_mask, img_wh,
-        frame_name="frame", num_exposure=11, cap=512,
+        frame_name="frame", num_exposure=11, cap=512, use_pallas=True,
         subdir="rgb_deblur_mid", bg_only=False,
     ):
         """Sharp mid-exposure render + metrics. bg_only renders without
         the fg Gaussians (the static stage's validation)."""
         out = self._render_sharp(
-            t, w2c, K, img_wh, num_exposure, cap, bg_only=bg_only,
+            t, w2c, K, img_wh, num_exposure, cap, use_pallas,
+            bg_only=bg_only,
         )
         self.update_metrics(out["img"], gt_img, fg_mask, valid_mask)
         self._save(subdir, f"{frame_name}_img", out["img"])
@@ -197,7 +199,7 @@ class Validator:
     def validate_keypoints(
         self, t, w2c, K, target_t, target_w2c, target_K, keypoints_2d,
         target_keypoints_2d, img_wh, pck_threshold_ratio=0.05,
-        num_exposure=11, cap=512,
+        num_exposure=11, cap=512, use_pallas=True,
     ):
         """PCK via rendered tracks_3d channels: render time t with
         target_ts=[target_t], read the camera-space track positions at the
@@ -211,7 +213,7 @@ class Validator:
             mode="mid", stage="second",
             target_ts=torch.tensor([float(target_t)], device=dev),
             target_w2cs=target_w2c[None],
-            num_exposure=num_exposure, cap=cap,
+            num_exposure=num_exposure, cap=cap, use_pallas=use_pallas,
         )
         q = torch.as_tensor(keypoints_2d, device=dev).to(torch.int32).long()
         tracks = out["tracks_3d"][q[:, 1], q[:, 0], 0]  # (P, 3) cam space
@@ -222,7 +224,7 @@ class Validator:
 
     def save_train_videos(
         self, dataset, epoch: int, fps: float = 10.0, num_exposure=11,
-        cap=512,
+        cap=512, use_pallas=True,
     ):
         """rgb / depth / mask training-view videos."""
         if self.save_dir is None:
@@ -237,7 +239,7 @@ class Validator:
         for i in range(len(dataset)):
             out = self._render_sharp(
                 i, dataset.w2cs[i], dataset.Ks[i], (W, H), num_exposure,
-                cap, return_depth=True, return_mask=True,
+                cap, use_pallas, return_depth=True, return_mask=True,
             )
             out = {k: out[k].cpu().numpy()
                    for k in ("img", "depth", "acc", "mask")}

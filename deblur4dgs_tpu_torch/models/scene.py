@@ -4,23 +4,30 @@ PyTorch port of deblur4dgs_tpu/models/scene.py. ``render`` samples the
 learned exposure window (S sub-frame residual poses + times; S = 1 for the
 sharp modes 'mid' / 'start' / 'end'), deforms the canonical Gaussians to
 every sub-frame time and projects all S sub-frames at once. Then one of
-three compositing paths, as in the reference:
+four compositing paths, as in the reference:
+  * ``subframe_sharding``: this rank's contiguous block of the S
+    sub-frames, each binned and composited on its own (K5, whatever
+    shared_exposure_binning says); the window's sums, mask max and depth
+    min are collectives over the ranks and the exposure stacks are
+    gathered (parallel/mesh.py); tile_overflow is NaN;
   * S > 1, shared binning, bucketed, >= 64 tiles: one binning sort for the
     window, count-sorted tile buckets, the window compositor (K1, K2/K3)
-    in tile space (ops/rasterize.py::composite_window_buckets);
+    in tile space (ops/rasterize.py::composite_window_buckets); with a
+    ``tile_mesh`` each rank composites its block of every bucket's rows
+    (the buckets padded to n_ranks * TILE_BLOCK rows);
   * S > 1, shared binning, under 64 tiles or bucketed=False: the same
     sort as dense tile lists, one payload gather for the window, and the
     split compositor (K4) per sub-frame (rasterize_split);
   * S = 1, or per-sub-frame binning: each view binned and composited on
     its own by the dense compositor (K5) (rasterize).
 The per-sub-frame paths accumulate the exposure reductions in an unrolled
-loop, as the reference's single-chip path does.
+loop, as the reference's single-chip path does. ``use_pallas=False``
+composites every path with the reference's plain compositors without the
+early stop (ops/rasterize.py::composite_*_nostop) instead of the kernels.
 
 Channel multiplexing matches the reference: [RGB(3) | mask(1)? |
 tracks(3B)? | depth(1)?] composited in one pass; blurry mask = max over
 sub-frames, blurry depth = min over sub-frames, everything else = mean.
-Not ported (raise NotImplementedError): subframe_sharding and tile_mesh
-(the multi-device slice) and use_pallas=False.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from deblur4dgs_tpu_torch.ops.rasterize import (
     rasterize_split,
 )
 from deblur4dgs_tpu_torch.ops.tiling import (
+    TILE_BLOCK,
     bin_gaussians_union,
     bin_gaussians_union_runs,
     bucket_tiles_from_runs,
@@ -54,6 +62,7 @@ from deblur4dgs_tpu_torch.ops.tiling import (
     packed_dyn_table,
     packed_static_table,
 )
+from deblur4dgs_tpu_torch.parallel import mesh as pmesh
 
 BLUR_NUM_CAMERAS = 11  # exposure sub-frames
 
@@ -145,10 +154,11 @@ def render(
     cap: int = 512,
     use_pallas: bool = True,
     means2d_tap: torch.Tensor | None = None,  # (S, N, 2) leaf, requires_grad
-    subframe_sharding=None,
+    subframe_sharding=None,  # parallel.mesh.Sharding of the S axis
     shared_exposure_binning: bool = True,
     bucketed: bool = True,
-    tile_mesh=None,
+    tile_mesh=None,  # parallel.mesh.Mesh: composite split over tile rows
+    tile_axis: str = "tile",
     return_exposure_stack: bool = True,
     camera_mode: str = "linear",
     max_tiles_per_gauss: int = 32,
@@ -159,24 +169,20 @@ def render(
     ``means2d_tap`` is added to every sub-frame's projected means2d; pass a
     zeros leaf with ``requires_grad=True`` and its ``.grad`` after backward
     is dL/d(means2d) per sub-frame (the density-control statistic).
-    ``tile_overflow`` is NaN on the paths that do not measure it (S = 1
-    and per-sub-frame binning), as in the reference.
+    ``tile_overflow`` is NaN on the paths that do not measure it (S = 1,
+    per-sub-frame binning and subframe_sharding), as in the reference.
+    Under ``subframe_sharding`` or ``tile_mesh`` every rank of the mesh
+    calls render with the same arguments and gets the same outputs; their
+    gradients reach every rank whole (parallel/mesh.py).
     """
     assert not (fg_only and bg_only)
     W, H = img_wh
     tiles_x, tiles_y = num_tiles(img_wh)
     if mode not in ("blury", "mid", "start", "end"):
         raise ValueError(f"unknown render mode {mode!r}")
-    if subframe_sharding is not None or tile_mesh is not None:
-        raise NotImplementedError(
-            "subframe_sharding / tile_mesh belong to the multi-device slice"
-        )
-    if not use_pallas:
-        raise NotImplementedError(
-            "use_pallas=False (the reference's no-early-stop XLA path) is "
-            "not ported; the compositors always run the kernels or their "
-            "twins"
-        )
+    if subframe_sharding is not None and subframe_sharding.axis is None:
+        raise ValueError("subframe_sharding must split an axis, not "
+                         "replicate")
     dev = w2c.device
 
     scales, opacities, colors, alive = _gather_set(scene, fg_only, bg_only)
@@ -240,14 +246,25 @@ def render(
         projs = projs._replace(means2d=projs.means2d + means2d_tap)
 
     tile_overflow = torch.full((), float("nan"), device=dev)
-    if (shared_exposure_binning and S > 1 and bucketed
+    if subframe_sharding is not None:
+        window_out = _composite_subframes_sharded(
+            subframe_sharding.mesh, projs, opacities, const_chans,
+            background, img_wh, cap, use_pallas, return_mask, return_depth,
+            return_exposure_stack,
+        )
+    elif (shared_exposure_binning and S > 1 and bucketed
             and tiles_x * tiles_y >= 64):
         # --- shared binning + count-sorted buckets ------------------------
         rank_sorted, starts, _, raw, order = bin_gaussians_union_runs(
             projs, img_wh, cap, max_tiles_per_gauss=max_tiles_per_gauss,
         )
         spec = default_bucket_spec(tiles_x * tiles_y, cap)
-        buckets = bucket_tiles_from_runs(rank_sorted, starts, raw, N, spec)
+        # Tile-sharded compositing needs every bucket's rows to split
+        # evenly over the ranks, each block TILE_BLOCK-aligned.
+        pad_mult = TILE_BLOCK * (
+            tile_mesh.shape[tile_axis] if tile_mesh is not None else 1)
+        buckets = bucket_tiles_from_runs(rank_sorted, starts, raw, N, spec,
+                                         pad_multiple=pad_mult)
         # Fraction of tile-Gaussian intersections dropped by capacity
         # truncation.
         kept = sum(c.sum() for c in buckets.counts)
@@ -270,6 +287,8 @@ def render(
             background, img_wh,
             include_depth=return_depth,
             mask_channel=3 if return_mask else None,
+            use_pallas=use_pallas,
+            tile_mesh=tile_mesh, tile_axis=tile_axis,
             stack_subframes=return_exposure_stack,
             stack_mask=return_exposure_stack and return_mask,
         )
@@ -289,18 +308,15 @@ def render(
             def composite(s):
                 return rasterize_split(
                     st_data, dyn_all[s], shared[1], background, img_wh,
-                    include_depth=return_depth,
+                    include_depth=return_depth, use_pallas=use_pallas,
                 )
         else:
 
             def composite(s):
-                proj = Projected(*(x[s] for x in projs))
-                ch = const_chans
-                if return_depth:
-                    ch = torch.cat([ch, proj.depths[:, None]], dim=-1)
-                img, alpha, _ = rasterize(proj, opacities, ch, background,
-                                          img_wh, cap=cap)
-                return img, alpha
+                return _composite_view(
+                    Projected(*(x[s] for x in projs)), opacities,
+                    const_chans, background, img_wh, cap, use_pallas,
+                    return_depth)
 
         window_out = _accumulate_subframes(composite, S, (H, W, D), dev,
                                            return_mask, return_depth)
@@ -340,6 +356,79 @@ def render(
     return out
 
 
+def _composite_view(proj, opacities, const_chans, background, img_wh, cap,
+                    use_pallas, return_depth):
+    """One view binned and composited on its own (K5): (img (H, W, D),
+    alpha (H, W)); the depth channel is still the alpha-weighted sum."""
+    ch = const_chans
+    if return_depth:
+        ch = torch.cat([ch, proj.depths[:, None]], dim=-1)
+    img, alpha, _ = rasterize(proj, opacities, ch, background, img_wh,
+                              cap=cap, use_pallas=use_pallas)
+    return img, alpha
+
+
+def _expected_depth(img, alpha):
+    """The depth channel normalized by alpha (gsplat's RGB+ED)."""
+    dch = img[..., -1:] / torch.clamp(alpha[..., None], min=1e-10)
+    return torch.cat([img[..., :-1], dch], dim=-1)
+
+
+def _composite_subframes_sharded(mesh, projs, opacities, const_chans,
+                                 background, img_wh, cap, use_pallas,
+                                 return_mask, return_depth, stack):
+    """The reference's sub-frame-sharded path (scene.py:248-265) on this
+    rank: its contiguous block of the S views, each composited on its own,
+    then the window reductions across the ranks (sums; the mask's max and
+    the depth's min with the cotangent split over ties) and the exposure
+    stacks gathered (all S, or the mid sub-frame alone when ``stack`` is
+    False). Same keys as composite_window_buckets."""
+    W, H = img_wh
+    S = projs.depths.shape[0]
+    D = background.shape[0]
+    a, b = mesh.block(S)
+    means2d, conics, depths, opacities, const_chans = pmesh.enter(
+        mesh, projs.means2d, projs.conics, projs.depths, opacities,
+        const_chans)
+    imgs, alphas = [], []
+    for s in range(a, b):
+        proj = Projected(means2d[s], conics[s], depths[s], projs.radii[s],
+                         projs.valid[s])
+        img, alpha = _composite_view(proj, opacities, const_chans,
+                                     background, img_wh, cap, use_pallas,
+                                     return_depth)
+        imgs.append(_expected_depth(img, alpha) if return_depth else img)
+        alphas.append(alpha)
+    if imgs:
+        imgs, alphas = torch.stack(imgs), torch.stack(alphas)
+    else:  # an empty share joins every collective; the (empty) entered
+        # block keeps the enter in its graph, so its backward joins too
+        link = means2d[a:b].sum()
+        imgs = background.new_zeros((0, H, W, D)) + link
+        alphas = background.new_zeros((0, H, W)) + link
+    sum_img, sum_alpha = pmesh.reduce_sum(mesh, imgs.sum(0), alphas.sum(0))
+    out = {
+        "sum_img": sum_img,
+        "sum_alpha": sum_alpha,
+        "max_mask": pmesh.reduce_max(mesh, imgs[..., 3:4])
+        if return_mask else None,
+        "min_depth": pmesh.reduce_min(mesh, imgs[..., -1:])
+        if return_depth else None,
+    }
+    keep = range(S) if stack else [S // 2]
+    mine = [s - a for s in keep if a <= s < b]
+    counts = [sum(1 for s in keep if lo <= s < hi)
+              for lo, hi in (pmesh.block_of(S, mesh.size, r)
+                             for r in range(mesh.size))]
+    parts = [imgs[mine, ..., :3], alphas[mine]]
+    if return_mask:
+        parts.append(imgs[mine, ..., 3:4])
+    parts = pmesh.gather(mesh, *parts, counts=counts)
+    out["rgb_stack"], out["alpha_stack"] = parts[:2]
+    out["mask_stack"] = parts[2] if return_mask else None
+    return out
+
+
 def _accumulate_subframes(composite, S, hwd, dev, return_mask,
                           return_depth):
     """The reference's unrolled per-sub-frame accumulate loop over
@@ -356,9 +445,7 @@ def _accumulate_subframes(composite, S, hwd, dev, return_mask,
     for s in range(S):
         img, alpha = composite(s)
         if return_depth:
-            # expected depth (gsplat RGB+ED): normalize by alpha
-            dch = img[..., -1:] / torch.clamp(alpha[..., None], min=1e-10)
-            img = torch.cat([img[..., :-1], dch], dim=-1)
+            img = _expected_depth(img, alpha)
         sum_img = sum_img + img
         sum_alpha = sum_alpha + alpha
         if return_mask:

@@ -41,6 +41,19 @@ On CUDA tensors the compositors launch the kernels in csrc/ (built by
 ops/cuda_build.py) or raise; on CPU tensors they run the twins. There is
 no fallback from one to the other. The dense and split twins are the
 window twin on views of their inputs (the same per-pair math).
+
+The reference's plain compositors without the early stop (its XLA path,
+use_pallas=False: ``_composite_xla``, ``_composite_split_xla``,
+``_composite_window_xla``) are ``composite_{dense,split,window}_nostop``:
+plain torch on any device, every slot of every row composited, autograd
+through the transmittance's log-space cumsum, tiles in chunks (each
+recomputed in the backward) so that a 720p window never holds its whole
+(T, S, P, cap) alpha.
+
+Tile-sharded compositing (``composite_tiles_window_sharded``, the
+``tile_mesh`` of composite_window_buckets): each rank runs the window
+kernels on its contiguous block of a bucket's rows and the outputs are
+gathered (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -50,6 +63,7 @@ import os
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from deblur4dgs_tpu_torch.ops.tiling import (
     F_CHANNELS,
@@ -61,7 +75,9 @@ from deblur4dgs_tpu_torch.ops.tiling import (
     dense_row_floats,
     dense_table,
     num_tiles,
+    pack_and_gather,
 )
+from deblur4dgs_tpu_torch.parallel import mesh as pmesh
 
 ALPHA_CLAMP = 0.999
 ALPHA_CUTOFF = 1.0 / 255.0
@@ -385,6 +401,68 @@ def composite_dense_bwd_plain(table, idx, counts, accum, tfin, gacc, gt,
 
 
 # ---------------------------------------------------------------------------
+# The reference's plain compositors without the early stop (use_pallas=False)
+# ---------------------------------------------------------------------------
+
+NOSTOP_CHUNK_ELEMS = 1 << 24  # (tile, s, pixel, slot) entries per tile chunk
+
+
+def _window_nostop_rows(dyn, st, tile_ids, tiles_x, nchan, depth_in_dyn):
+    """The no-stop window composite of a few rows: every slot, front to
+    back, T from the log-space cumsum as the reference computes it."""
+    n_static = nchan - (1 if depth_in_dyn else 0)
+    px, py = _pixel_centres(tile_ids, tiles_x)
+    alpha, _, _, _ = _alpha_chunk(dyn, st[:, None, 0:1, :], px, py, True)
+    l1m = torch.log1p(-alpha)
+    cum = torch.cumsum(l1m, dim=-1)
+    w = alpha * torch.exp(cum - l1m)
+    ch = _chunk_channels(dyn, st, n_static, depth_in_dyn)
+    return torch.einsum("tscg,tspg->tscp", ch, w), torch.exp(cum[..., -1])
+
+
+def composite_window_nostop(dyn, st, counts, tile_ids, tiles_x, nchan,
+                            depth_in_dyn):
+    """The reference's _composite_window_xla (rasterize.py:1469): dyn
+    (T, S, Fd, cap), st (T, 1+Dc, cap) -> accum (T, S, nchan, P), tfin
+    (T, S, P) without the early stop; ``counts`` are unused (slots past a
+    count hold the sentinel row, which contributes nothing)."""
+    T, S, _, cap = dyn.shape
+    rows = max(1, NOSTOP_CHUNK_ELEMS // (S * P * cap))
+    grad = torch.is_grad_enabled() and (dyn.requires_grad or
+                                        st.requires_grad)
+    outs = []
+    for a in range(0, T, rows):
+        args = (dyn[a : a + rows], st[a : a + rows], tile_ids[a : a + rows],
+                tiles_x, nchan, depth_in_dyn)
+        outs.append(torch.utils.checkpoint.checkpoint(
+            _window_nostop_rows, *args, use_reentrant=False) if grad
+            else _window_nostop_rows(*args))
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+
+def composite_split_nostop(dyn, st, counts, tile_ids, tiles_x, nchan,
+                           depth_in_dyn):
+    """The reference's _composite_split_xla (rasterize.py:795): one
+    sub-frame (T, Fd, cap) -> accum (T, nchan, P), tfin (T, P)."""
+    acc, tf = composite_window_nostop(dyn[:, None], st, counts, tile_ids,
+                                      tiles_x, nchan, depth_in_dyn)
+    return acc[:, 0], tf[:, 0]
+
+
+def composite_dense_nostop(tile_data, counts, tiles_x, nchan):
+    """The reference's _composite_xla (rasterize.py:383) on its dense
+    payload (T, 7+D, cap) -> accum (T, P, D), tfin (T, P, 1); row t is
+    image tile t."""
+    T = tile_data.shape[0]
+    dyn = tile_data[:, _DENSE_DYN_ROWS]
+    st = tile_data[:, [F_OPACITY, *range(F_CHANNELS, F_CHANNELS + nchan)]]
+    ids = torch.arange(T, dtype=torch.int32, device=tile_data.device)
+    acc, tf = composite_split_nostop(dyn, st, counts, ids, tiles_x, nchan,
+                                     False)
+    return acc.transpose(1, 2), tf[..., None]
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernel wrappers (ctypes; see ops/cuda_build.py)
 # ---------------------------------------------------------------------------
 
@@ -666,6 +744,27 @@ def composite_tiles_window(dyn, st, counts, tile_ids, tiles_x, nchan,
                             nchan, bool(depth_in_dyn))
 
 
+def composite_tiles_window_sharded(dyn, st, counts, tile_ids, tiles_x, nchan,
+                                   depth_in_dyn, tile_mesh, tile_axis="tile"):
+    """composite_tiles_window split over the ranks of ``tile_mesh`` by
+    rows (the reference's shard_map over the tile axis, rasterize.py:1519):
+    each rank composites its contiguous block of the bucket's rows with the
+    window kernels (K1; K2/K3 in the backward), and the blocks' outputs are
+    gathered. The inputs are replicated and enter the rank's share (their
+    gradient is summed over the ranks). Rows must split evenly (pad buckets
+    to n_ranks * TILE_BLOCK)."""
+    n = tile_mesh.shape[tile_axis]
+    if dyn.shape[0] % n:
+        raise ValueError(f"{dyn.shape[0]} bucket rows do not split over "
+                         f"{n} ranks")
+    a, b = tile_mesh.block(dyn.shape[0])
+    dyn, st = pmesh.enter(tile_mesh, dyn, st)
+    acc, tf = composite_tiles_window(dyn[a:b], st[a:b], counts[a:b],
+                                     tile_ids[a:b], tiles_x, nchan,
+                                     depth_in_dyn)
+    return pmesh.gather(tile_mesh, acc, tf)
+
+
 class _CompositeScatter(torch.autograd.Function):
     """All buckets of a window into one image-tile-ordered output (K6).
 
@@ -838,18 +937,27 @@ def rasterize(
     background: torch.Tensor,  # (D,)
     img_wh: tuple[int, int],
     cap: int = 512,
+    use_pallas: bool = True,
 ):
     """Full tile rasterization of one view: bin -> composite (K5, reading
-    the per-Gaussian table by index) -> untile.
+    the per-Gaussian table by index) -> untile. ``use_pallas=False``: the
+    reference's dense payload (pack_and_gather) through its plain
+    compositor without the early stop (composite_dense_nostop).
 
     Returns (img (H, W, D) with the background blended by the final
-    transmittance, alpha = 1 - T_fin (H, W), binning (IndexedBinning))."""
+    transmittance, alpha = 1 - T_fin (H, W), binning (IndexedBinning; a
+    TileBinning with use_pallas=False))."""
     nchan = channels.shape[-1]
-    binning = bin_indexed(proj, img_wh, cap)
+    if use_pallas:
+        binning = bin_indexed(proj, img_wh, cap)
+        accum, tfin = composite_indexed(
+            dense_table(proj, opacities, channels), binning.idx,
+            binning.counts, binning.slot_map, binning.tiles_xy[0], nchan)
+    else:
+        binning = pack_and_gather(proj, opacities, channels, img_wh, cap)
+        accum, tfin = composite_dense_nostop(
+            binning.tile_data, binning.counts, binning.tiles_xy[0], nchan)
     tiles_x, tiles_y = binning.tiles_xy
-    accum, tfin = composite_indexed(
-        dense_table(proj, opacities, channels), binning.idx, binning.counts,
-        binning.slot_map, tiles_x, nchan)
     T = tiles_x * tiles_y  # drop TILE_BLOCK padding rows
     img, tf = untile(accum[:T], tfin[:T], img_wh, binning.tiles_xy, nchan)
     img = img + tf[..., None] * background[None, None, :]
@@ -863,8 +971,10 @@ def rasterize_split(
     background: torch.Tensor,  # (nchan,)
     img_wh: tuple[int, int],
     include_depth: bool,
+    use_pallas: bool = True,
 ):
-    """Exposure-shared rasterization of one sub-frame (split payload, K4).
+    """Exposure-shared rasterization of one sub-frame (split payload, K4;
+    with use_pallas=False the plain compositor without the early stop).
 
     Returns (img (H, W, nchan), alpha (H, W))."""
     tiles_x, tiles_y = num_tiles(img_wh)
@@ -873,10 +983,45 @@ def rasterize_split(
     counts = _pad_rows(counts, 0)
     tile_ids = torch.arange(counts.shape[0], dtype=torch.int32,
                             device=counts.device)
-    accum, tfin = composite_tiles_split(dyn_data, st_data, counts, tile_ids,
-                                        tiles_x, nchan, include_depth)
+    split = composite_tiles_split if use_pallas else composite_split_nostop
+    accum, tfin = split(dyn_data, st_data, counts, tile_ids, tiles_x, nchan,
+                        include_depth)
     img, tf = untile_cmajor(accum[:T], tfin[:T], img_wh, (tiles_x, tiles_y),
                             nchan)
+    img = img + tf[..., None] * background[None, None, :]
+    return img, 1.0 - tf
+
+
+def rasterize_split_buckets(
+    buckets,  # tiling.TileBuckets
+    st_list,  # per bucket: (Tb_pad, 1+Dc, cap_b) static payload
+    dyn_list,  # per bucket: (Tb_pad, Fd, cap_b) this sub-frame's dyn rows
+    background: torch.Tensor,  # (nchan,)
+    img_wh: tuple[int, int],
+    include_depth: bool,
+    use_pallas: bool = True,
+):
+    """One sub-frame through count-sorted tile buckets (the reference's
+    per-sub-frame bucketed path, rasterize.py:902): each bucket composites
+    its rows at its own capacity (K4, the window kernels at S = 1, with the
+    bucket's tile ids; or the plain compositor without the early stop), and
+    its real rows land at their image tiles of one (T, nchan, P) grid.
+
+    Returns (img (H, W, nchan), alpha (H, W))."""
+    tiles_x, tiles_y = num_tiles(img_wh)
+    T = tiles_x * tiles_y
+    nchan = st_list[0].shape[1] - 1 + (1 if include_depth else 0)
+    split = composite_tiles_split if use_pallas else composite_split_nostop
+    dev = background.device
+    accum = torch.zeros((T, nchan, P), device=dev)
+    tfin = torch.ones((T, P), device=dev)
+    for st, dyn, cnt, ids, size in zip(st_list, dyn_list, buckets.counts,
+                                       buckets.tile_ids, buckets.sizes):
+        acc, tf = split(dyn, st, cnt, ids, tiles_x, nchan, include_depth)
+        rows = (ids[:size].long(),)
+        accum = accum.index_put(rows, acc[:size])
+        tfin = tfin.index_put(rows, tf[:size])
+    img, tf = untile_cmajor(accum, tfin, img_wh, (tiles_x, tiles_y), nchan)
     img = img + tf[..., None] * background[None, None, :]
     return img, 1.0 - tf
 
@@ -894,7 +1039,9 @@ def composite_window_buckets(
     img_wh: tuple[int, int],
     include_depth: bool,
     mask_channel: int | None = None,
+    use_pallas: bool = True,
     tile_mesh=None,
+    tile_axis: str = "tile",
     stack_subframes: bool = True,
     stack_mask: bool = False,
 ):
@@ -906,7 +1053,11 @@ def composite_window_buckets(
     outputs in tile space, and one inverse-permutation row gather + untile
     reassembles the window. With ``_USE_SCATTER`` (D4_SCATTER=1) the
     buckets write one image-tile-ordered buffer instead
-    (composite_buckets_scatter, K6): no concat and no gather.
+    (composite_buckets_scatter, K6): no concat and no gather. A
+    ``tile_mesh`` splits every bucket's rows over its ranks
+    (composite_tiles_window_sharded) and bypasses K6, as in the reference;
+    ``use_pallas=False`` runs the plain compositor without the early stop
+    (composite_window_nostop).
 
     Returns dict: sum_img (H, W, nchan) (background blended), sum_alpha
     (H, W), max_mask (H, W, 1) | None, min_depth (H, W, 1) | None,
@@ -914,11 +1065,6 @@ def composite_window_buckets(
     (S', H, W, 1) | None, where S' = S, or 1 (the mid sub-frame) when
     stack_subframes=False.
     """
-    if tile_mesh is not None:
-        raise NotImplementedError(
-            "tile_mesh (compositing sharded over image tiles) comes with the "
-            "multi-device port slice"
-        )
     tiles_x, tiles_y = num_tiles(img_wh)
     T = tiles_x * tiles_y
     S = dyn_lists[0].shape[1]
@@ -930,7 +1076,7 @@ def composite_window_buckets(
     ncs = 4 + (1 if stack_mask else 0)  # per-sub-frame slab channels
     bg = background[None, None, :3, None]
 
-    if _USE_SCATTER:
+    if use_pallas and tile_mesh is None and _USE_SCATTER:
         # The buckets must partition the image tiles, so that every real
         # row of the shared buffer is written; pad rows go to trash row T.
         if sum(buckets.sizes) != T:
@@ -957,10 +1103,15 @@ def composite_window_buckets(
 
     packed_b = []
     for b in range(nb):
-        acc, tf = composite_tiles_window(
-            dyn_lists[b], st_list[b], buckets.counts[b],
-            buckets.tile_ids[b], tiles_x, nchan, include_depth,
-        )
+        args = (dyn_lists[b], st_list[b], buckets.counts[b],
+                buckets.tile_ids[b], tiles_x, nchan, include_depth)
+        if tile_mesh is not None:
+            acc, tf = composite_tiles_window_sharded(*args, tile_mesh,
+                                                     tile_axis)
+        elif use_pallas:
+            acc, tf = composite_tiles_window(*args)
+        else:
+            acc, tf = composite_window_nostop(*args)
         n = buckets.sizes[b]
         packed_b.append(_window_packed_channels(
             acc[:n], tf[:n], bg, mask_channel, include_depth, s_keep,

@@ -1,8 +1,6 @@
 """Depth sorting + tile binning + count-sorted buckets + payload packing.
 
-PyTorch port of deblur4dgs_tpu/ops/tiling.py (all but the top-k binning
-``bin_gaussians`` and the unused ``bucket_tiles`` / ``pack_dyn_fused``).
-Every integer output (sort order, sorted runs, dense tile lists, bucket tile
+PyTorch port of deblur4dgs_tpu/ops/tiling.py. Every integer output (sort order, sorted runs, dense tile lists, bucket tile
 ids, counts, gather indices) equals the reference's exactly:
   * both depth-order sorts are stable (``torch.argsort(stable=True)``;
     ``jnp.argsort`` is stable by default), so ties in the depth key and in
@@ -37,8 +35,8 @@ TILE = 16  # pixels per tile side; P = TILE*TILE = 256 pixels per tile
 TILE_BLOCK = 8
 
 
-def pad_tiles(n: int) -> int:
-    return -(-n // TILE_BLOCK) * TILE_BLOCK
+def pad_tiles(n: int, multiple: int = TILE_BLOCK) -> int:
+    return -(-n // multiple) * multiple
 
 
 # Dense payload rows (the F axis of TileBinning.tile_data). The radius rides
@@ -68,6 +66,52 @@ class TileBinning(NamedTuple):
 def num_tiles(img_wh: tuple[int, int]) -> tuple[int, int]:
     W, H = img_wh
     return (-(-W // TILE), -(-H // TILE))
+
+
+def bin_gaussians(
+    proj: Projected,  # one view: (G, ...) arrays
+    img_wh: tuple[int, int],
+    cap: int = 512,
+    tile_batch: int = 256,
+):
+    """The top-k binning of one view: per tile, the first ``cap``
+    Gaussians in depth order whose bounding square overlaps the tile
+    rectangle, chosen by a top-k of (G - rank) over the overlap mask (ranks
+    are distinct, so the selection is exact and order-preserving); tiles in
+    batches of ``tile_batch`` bound the (batch, G) mask.
+
+    Returns (gather_idx (T, cap) into depth-sorted arrays, counts (T,),
+    raw_counts (T,), order (G,)); entries past a count are G (the sentinel
+    row)."""
+    G = proj.depths.shape[0]
+    dev = proj.depths.device
+    tiles_x, tiles_y = num_tiles(img_wh)
+    T = tiles_x * tiles_y
+    key = torch.where(proj.valid, proj.depths,
+                      torch.full_like(proj.depths, float("inf")))
+    order = torch.argsort(key, stable=True)
+    mx, my = proj.means2d[order, 0], proj.means2d[order, 1]
+    r = proj.radii[order]
+    valid = proj.valid[order]
+    tids = torch.arange(T, device=dev)
+    tx0 = (tids % tiles_x).float() * TILE
+    ty0 = (tids // tiles_x).float() * TILE
+    score_of_rank = G - torch.arange(G, device=dev)
+    idx_l, cnt_l, raw_l = [], [], []
+    for b in range(0, T, tile_batch):
+        x0 = tx0[b : b + tile_batch, None]
+        y0 = ty0[b : b + tile_batch, None]
+        inter = ((mx + r > x0) & (mx - r < x0 + TILE) & (my + r > y0)
+                 & (my - r < y0 + TILE) & valid)
+        raw = inter.sum(1, dtype=torch.int32)
+        score = torch.where(inter, score_of_rank, 0)
+        if G < cap:  # topk needs k <= the axis size
+            score = F.pad(score, (0, cap - G))
+        top = torch.topk(score, cap, dim=1).values  # descending: rank order
+        idx_l.append(torch.where(top > 0, G - top, G).to(torch.int32))
+        cnt_l.append(torch.clamp(raw, max=cap))
+        raw_l.append(raw)
+    return torch.cat(idx_l), torch.cat(cnt_l), torch.cat(raw_l), order
 
 
 def _tile_of(x, n):
@@ -113,6 +157,41 @@ def default_bucket_spec(T: int, cap: int):
                 spec.append((n, c))
         left -= n
     return tuple(spec)
+
+
+def bucket_tiles(
+    gather_idx: torch.Tensor,  # (T, CAP) dense tile lists
+    counts: torch.Tensor,  # (T,)
+    raw_counts: torch.Tensor,  # (T,) pre-cap occupancy (the sort key)
+    G: int,
+    spec,  # ((n_tiles, cap), ...) static, sizes summing to T
+) -> TileBuckets:
+    """Split tiles into occupancy-rank buckets from dense tile lists: each
+    bucket's lists are the front-most cap_b entries of the full lists, rows
+    padded to a TILE_BLOCK multiple (tile id 0, count 0, sentinel G)."""
+    dev = raw_counts.device
+    order_t = torch.argsort(-raw_counts, stable=True).to(torch.int32)
+    ids_l, cnt_l, gi_l, caps, sizes = [], [], [], [], []
+    start = 0
+    for n, c in spec:
+        ids = order_t[start : start + n]
+        start += n
+        pad = pad_tiles(n) - n
+        idl = ids.long()
+        gi = gather_idx[idl, :c]
+        cnt = torch.clamp(counts[idl], max=c)
+        if pad:
+            ids = torch.cat([ids, ids.new_zeros((pad,))])
+            cnt = torch.cat([cnt, cnt.new_zeros((pad,))])
+            gi = torch.cat([gi, gi.new_full((pad, c), G)])
+        ids_l.append(ids)
+        cnt_l.append(cnt)
+        gi_l.append(gi)
+        caps.append(c)
+        sizes.append(n)
+    return TileBuckets(
+        tuple(ids_l), tuple(cnt_l), tuple(gi_l), tuple(caps), tuple(sizes)
+    )
 
 
 def _pairs_to_runs(tx0, tx1, ty0, ty1, cx, cy, valid, G, T, tiles_x,
@@ -299,11 +378,12 @@ def bucket_tiles_from_runs(
     raw_counts: torch.Tensor,  # (T,)
     G: int,
     spec,  # ((n_tiles, cap), ...) static, sizes summing to T
+    pad_multiple: int = TILE_BLOCK,  # n_ranks * TILE_BLOCK when tile-sharded
 ) -> TileBuckets:
     """Split tiles into occupancy-rank buckets, reading each bucket's
     (Tb, cap_b) lists straight from the sorted runs. Rows are padded to a
-    TILE_BLOCK multiple; pad rows have tile id 0, count 0 and sentinel (G)
-    gather entries."""
+    multiple of ``pad_multiple``; pad rows have tile id 0, count 0 and
+    sentinel (G) gather entries."""
     dev = raw_counts.device
     E = rank_sorted.shape[0]
     order_t = torch.argsort(-raw_counts, stable=True).to(torch.int32)
@@ -313,7 +393,7 @@ def bucket_tiles_from_runs(
     for n, c in spec:
         ids = order_t[start : start + n]
         start += n
-        pad = pad_tiles(n) - n
+        pad = pad_tiles(n, pad_multiple) - n
         idl = ids.long()
         lane = torch.arange(c, dtype=torch.int64, device=dev)[None, :]
         src = torch.clamp(starts[idl].long()[:, None] + lane, max=E - 1)
@@ -524,6 +604,38 @@ def pack_dyn_all(
     out = _gather_rows(gather_idx, packed)  # (Tp, CAP, S*Fd)
     out = out.reshape(Tp, cap, S, -1).permute(2, 0, 3, 1)
     return out.contiguous()
+
+
+def pack_dyn(
+    proj: Projected,  # one view
+    gather_idx: torch.Tensor,
+    order: torch.Tensor,
+    include_depth: bool,
+) -> torch.Tensor:
+    """(Tp, 6(+1), CAP): one sub-frame's screen rows."""
+    G = proj.depths.shape[0]
+    rows = [proj.means2d, proj.conics, proj.radii[:, None]]
+    if include_depth:
+        rows.append(proj.depths[:, None])
+    packed = _with_sentinel(torch.cat(rows, dim=-1)[order])
+    out = _gather_rows(_pad_rows(gather_idx, G), packed)
+    return out.transpose(-1, -2).contiguous()
+
+
+def pack_dyn_fused(
+    projs: Projected,  # arrays with leading sub-frame axis (S, G, ...)
+    gather_idx: torch.Tensor,
+    order: torch.Tensor,
+    include_depth: bool,
+) -> torch.Tensor:
+    """(Tp, S, 6(+1), CAP): pack_dyn_all in the window compositor's layout
+    (the sub-frame axis inside the tile axis), one gather."""
+    S, G = projs.depths.shape
+    gather_idx = _pad_rows(gather_idx, G)
+    Tp, cap = gather_idx.shape
+    out = _gather_rows(gather_idx, packed_dyn_table(projs, order,
+                                                    include_depth))
+    return out.reshape(Tp, cap, S, -1).permute(0, 2, 3, 1).contiguous()
 
 
 def pack_window_fused(

@@ -18,8 +18,10 @@ Where the port differs in form from the JAX package:
   * the port's train step updates the scene in place, so each stage clones
     the scene it is given (the JAX package copies it because its jitted
     step donates buffers): a stage never writes into another's scene;
-  * there is no ``use_pallas`` switch: the compositors always run the
-    kernels on the card (their plain twins on CPU tensors);
+  * ``cfg.render.use_pallas`` (the CLI's ``--no-pallas`` clears it) picks
+    the compositors of every render: the kernels on the card (their plain
+    twins on CPU tensors), or the reference's plain compositors without
+    the early stop (ops/rasterize.py::composite_*_nostop) on cfg.device;
   * images are written and read as PNGs through vis/png.py.
 The host random streams are the reference's (numpy default_rng(seed) for
 stage 1, seed + 1 for stage 2, replayed on resume), so both packages
@@ -373,6 +375,7 @@ def run_validation(
             t, item["w2cs"], item["Ks"], item["imgs"], item["masks"],
             item["valid_masks"], (W, H), frame_name=str(item["frame_names"]),
             num_exposure=cfg.render.num_exposure, cap=cfg.render.tile_cap,
+            use_pallas=cfg.render.use_pallas,
             subdir=osp.join("rgb_deblur_mid", f"{epoch:05d}"),
             bg_only=bg_only,
         )
@@ -384,7 +387,7 @@ def run_validation(
             and epoch % cfg.save_videos_every == 0):
         validator.save_train_videos(
             train_view, epoch, num_exposure=cfg.render.num_exposure,
-            cap=cfg.render.tile_cap)
+            cap=cfg.render.tile_cap, use_pallas=cfg.render.use_pallas)
     return metrics, validator
 
 
@@ -524,7 +527,8 @@ def run_testing(
     W, H = val_dataset.get_img_wh()
     pose_opt = make_pose_opt_fn(
         (W, H), num_iters=cfg.pose_opt_iters,
-        num_exposure=cfg.render.num_exposure, cap=cfg.render.tile_cap)
+        num_exposure=cfg.render.num_exposure, cap=cfg.render.tile_cap,
+        use_pallas=cfg.render.use_pallas)
     validator = Validator(scene, save_dir=cfg.work_dir,
                           has_bg=scene.bg is not None, lpips_fn=lpips_fn)
     for i in range(len(val_dataset)):
@@ -572,7 +576,8 @@ def run_testing_windows(
     slices = val_partition(V, len(window_scenes), train_num_frames, base)
     pose_opt = make_pose_opt_fn(
         (W, H), num_iters=cfg.pose_opt_iters,
-        num_exposure=cfg.render.num_exposure, cap=cfg.render.tile_cap)
+        num_exposure=cfg.render.num_exposure, cap=cfg.render.tile_cap,
+        use_pallas=cfg.render.use_pallas)
     any_scene = next(iter(window_scenes.values()))[0]
     validator = Validator(any_scene, save_dir=cfg.work_dir,
                           has_bg=any_scene.bg is not None, lpips_fn=lpips_fn)
@@ -663,6 +668,7 @@ def render_sharp_frames(scene: SceneModel, dataset, cfg: PipelineConfig,
             torch.as_tensor(np.asarray(dataset.Ks[i]), device=dev), (W, H),
             mode="mid", stage="second", bg_only=bg_only,
             num_exposure=cfg.render.num_exposure, cap=cfg.render.tile_cap,
+            use_pallas=cfg.render.use_pallas,
         )["img"]
         if downsample > 1:
             img = downsample_area(img, downsample)

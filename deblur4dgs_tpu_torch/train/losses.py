@@ -1,9 +1,8 @@
 """Loss library: masked/quantile-trimmed photometric losses, SSIM, motion regs.
 
-PyTorch port of the parts of deblur4dgs_tpu/train/losses.py the train
-step's static, dynamic and static-reg branches use (not yet:
-masked_huber_loss, tv_loss). Trimming is a masked weighting with a masked quantile
-(sort + interpolated gather), so every loss is fixed-shape. SSIM follows
+PyTorch port of deblur4dgs_tpu/train/losses.py. Trimming is a masked
+weighting with a masked quantile (sort + interpolated gather), so every
+loss is fixed-shape. SSIM follows
 pytorch_msssim defaults (11x11 gaussian window, sigma 1.5, K1=0.01,
 K2=0.03) through banded blur matrices in full float32.
 """
@@ -68,6 +67,22 @@ def masked_mse_loss(pred, gt, mask=None, normalize=True, quantile=1.0):
     per = torch.mean((pred - gt) ** 2, dim=-1)
     m = None if mask is None else mask.reshape(per.shape)
     return _masked_reduce(per, m, normalize, quantile)
+
+
+def masked_huber_loss(pred, gt, delta, mask=None, normalize=True):
+    """Huber loss per element (0.5 e^2 within delta, linear beyond), masked
+    by ``mask`` broadcast over pred's trailing dims."""
+    err = pred - gt
+    abs_err = abs_ref(err)
+    per = torch.where(abs_err <= delta, 0.5 * err**2,
+                      delta * (abs_err - 0.5 * delta))
+    if mask is None:
+        return torch.mean(per)
+    m = mask.reshape(mask.shape + (1,) * (per.dim() - mask.dim()))
+    m = m.expand(per.shape)
+    if normalize:
+        return torch.sum(per * m) / (torch.sum(m) * 1.0 + 1e-8)
+    return torch.mean(per * m)
 
 
 def compute_gradient_loss(pred, gt, mask, quantile=0.98):
@@ -146,6 +161,10 @@ def ssim(img1, img2, data_range=1.0, win_size=11, sigma=1.5, K1=0.01, K2=0.03):
     return torch.mean(m)
 
 
+def ssim_loss(img1, img2, **kw):
+    return 1.0 - ssim(img1, img2, **kw)
+
+
 # ---------------------------------------------------------------------------
 # Motion regularizers
 # ---------------------------------------------------------------------------
@@ -182,3 +201,10 @@ def scale_variance_loss(log_scales: torch.Tensor, mask=None):
         return torch.mean(var)
     m = mask.to(var.dtype)
     return torch.sum(var * m) / (torch.sum(m) + 1e-8)
+
+
+def tv_loss(x):
+    """Total variation of (H, W, C)."""
+    h = torch.mean((x[1:, :] - x[:-1, :]) ** 2)
+    w = torch.mean((x[:, 1:] - x[:, :-1]) ** 2)
+    return 2.0 * (h + w)

@@ -6,8 +6,13 @@ the static-reg branch (bg-only sharp 'mid' renders). The step runs the
 branches it was built with, backpropagates their summed loss once, applies
 the grouped Adam update in place and accumulates density-control
 statistics. With ``flow_fn`` (models/pwcnet.py::make_aligned_loss_fn) the
-dynamic branch adds the exposure-consistency term. Not ported (it
-raises): multi-device training.
+dynamic branch adds the exposure-consistency term. With
+``subframe_sharding`` or ``tile_mesh`` (parallel/mesh.py) every rank of the
+mesh runs the same step on the same replicated state and batches: the
+renders split their work over the ranks, every rank computes the whole loss
+and holds the whole gradient after backward (the collectives' adjoints sum
+it; nothing is all-reduced afterwards), and every rank applies the same
+Adam update.
 
 Density statistics use the tap trick: a zeros leaf (``requires_grad``) is
 added to every sub-frame's projected means2d; its ``.grad`` is
@@ -159,11 +164,12 @@ def _valid_blend(x, valid_masks):
     return x * v + (1.0 - v)
 
 
-def _render_kw(rcfg: RenderConfig):
+def _render_kw(rcfg: RenderConfig, subframe_sharding, tile_mesh):
     return dict(num_exposure=rcfg.num_exposure, cap=rcfg.tile_cap,
                 use_pallas=rcfg.use_pallas, bucketed=rcfg.bucketed,
                 camera_mode=rcfg.camera_mode,
-                max_tiles_per_gauss=rcfg.max_tiles_per_gauss)
+                max_tiles_per_gauss=rcfg.max_tiles_per_gauss,
+                subframe_sharding=subframe_sharding, tile_mesh=tile_mesh)
 
 
 def _tap(taps, b):
@@ -177,6 +183,8 @@ def compute_static_losses(
     lcfg: LossesConfig,
     rcfg: RenderConfig,
     stage: str,
+    subframe_sharding=None,
+    tile_mesh=None,
 ):
     """Static branch: bg-only blurry renders of B frames (RGB outside the
     dilated fg mask, bounded disparities, their gradients, scale variance
@@ -189,7 +197,7 @@ def compute_static_losses(
             (W, H), mode="blury", stage=stage, bg_only=True,
             return_mask=True, return_depth=True, bg_color=1.0,
             means2d_tap=_tap(taps, b), return_exposure_stack=False,
-            **_render_kw(rcfg),
+            **_render_kw(rcfg, subframe_sharding, tile_mesh),
         )
         for b in range(B)
     ]
@@ -246,6 +254,8 @@ def compute_static_reg_losses(
     lcfg: LossesConfig,
     rcfg: RenderConfig,
     stage: str,
+    subframe_sharding=None,
+    tile_mesh=None,
 ):
     """Static-reg branch: bg-only sharp 'mid' renders (the dense
     compositor) pulled toward the stage-1 outputs outside the dilated fg
@@ -256,7 +266,7 @@ def compute_static_reg_losses(
             scene, batch.ts[b].to(torch.float32), batch.w2cs[b], batch.Ks[b],
             (W, H), mode="mid", stage=stage, bg_only=True, return_mask=True,
             return_depth=False, bg_color=1.0, means2d_tap=_tap(taps, b),
-            **_render_kw(rcfg),
+            **_render_kw(rcfg, subframe_sharding, tile_mesh),
         )
         for b in range(B)
     ]
@@ -284,6 +294,8 @@ def compute_dynamic_losses(
     num_window_frames: int,
     batch4_imgs: torch.Tensor | None = None,  # (1, H/4, W/4, 3) guide
     flow_fn=None,
+    subframe_sharding=None,
+    tile_mesh=None,
 ):
     """Dynamic branch: full blurry render + tracks, depth, mask, motion and
     exposure regularizers, and with ``flow_fn`` the exposure-consistency
@@ -300,7 +312,7 @@ def compute_dynamic_losses(
         target_w2cs=tracks.target_w2cs,
         return_mask=True, return_depth=True, bg_color=1.0,
         means2d_tap=_tap(taps, 0), return_exposure_stack=flow_fn is not None,
-        **_render_kw(rcfg),
+        **_render_kw(rcfg, subframe_sharding, tile_mesh),
     )
 
     masks = (batch.masks * batch.valid_masks)[0]  # (H, W)
@@ -475,9 +487,10 @@ def make_train_step(
     Density statistics come from the last branch that ran, reg > dynamic >
     static, as in the reference (each branch overwrites the statistic the
     densifier reads); only that branch's render carries a means2d tap.
+    ``subframe_sharding`` / ``tile_mesh`` (parallel/mesh.py) reach every
+    render of the step; every rank of the mesh calls the step.
     """
-    if subframe_sharding is not None or tile_mesh is not None:
-        raise NotImplementedError("multi-device training is a later slice")
+    shard = dict(subframe_sharding=subframe_sharding, tile_mesh=tile_mesh)
     if not (has_static or has_dynamic or has_reg):
         raise ValueError("the step needs at least one loss branch")
     stats_branch = ("reg" if has_reg else "dynamic" if has_dynamic
@@ -504,19 +517,20 @@ def make_train_step(
         aux = {}
         if has_static:
             l, aux["static"] = compute_static_losses(
-                scene, batch_static, taps("static"), lcfg, rcfg, stage)
+                scene, batch_static, taps("static"), lcfg, rcfg, stage,
+                **shard)
             loss = loss + l
         if has_dynamic:
             l, aux["dynamic"] = compute_dynamic_losses(
                 scene, batch_dyn, tracks, taps("dynamic"), lcfg, rcfg, stage,
                 epoch, num_window_frames,
                 batch4_imgs=batch4_imgs if has_batch4 else None,
-                flow_fn=flow_fn,
+                flow_fn=flow_fn, **shard,
             )
             loss = loss + l
         if has_reg:
             l, aux["reg"] = compute_static_reg_losses(
-                scene, batch_reg, taps("reg"), lcfg, rcfg, stage)
+                scene, batch_reg, taps("reg"), lcfg, rcfg, stage, **shard)
             loss = loss + l
         loss.backward()
         grads = {

@@ -35,10 +35,11 @@ class CameraState:
 class Renderer:
     def __init__(self, scene: SceneModel | None, num_frames: int,
                  num_exposure: int = 11, cap: int = 512,
-                 num_tracks: int = 10):
+                 use_pallas: bool = True, num_tracks: int = 10):
         self.num_frames = num_frames
         self.num_exposure = num_exposure
         self.cap = cap
+        self.use_pallas = use_pallas
         self.num_tracks = num_tracks
         self.set_scene(scene)
 
@@ -100,7 +101,7 @@ class Renderer:
                 self.scene, t, torch.as_tensor(w2c, device=dev),
                 torch.as_tensor(K, device=dev), (W, H), mode="mid",
                 stage="second", num_exposure=self.num_exposure,
-                cap=self.cap,
+                cap=self.cap, use_pallas=self.use_pallas,
             )
             img = torch.clamp(out["img"], 0, 1).cpu().numpy()
         if render_tracks and t is not None:

@@ -326,11 +326,12 @@ class TrainingViewer(DynamicViewer):
 
     def __init__(self, num_frames: int, img_wh=(512, 288), port: int = 8890,
                  num_exposure: int = 11, cap: int = 512,
-                 work_dir: str | None = None):
+                 use_pallas: bool = True, work_dir: str | None = None):
         from deblur4dgs_tpu_torch.vis.renderer import Renderer
 
         self._renderer = Renderer(None, num_frames,
-                                  num_exposure=num_exposure, cap=cap)
+                                  num_exposure=num_exposure, cap=cap,
+                                  use_pallas=use_pallas)
         super().__init__(self._render, num_frames, img_wh, port,
                          mode="training", work_dir=work_dir)
 
