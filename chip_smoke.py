@@ -150,6 +150,22 @@ together), then:
      kernels on the card (the bucketed window and the sharp dense render
      at 128x128, the split path at 64x48): values and gradients within
      FWD_TOL / BWD_TOL, no kernel launched on the plain path;
+ 13b. the user's entry point for a real scene (phase_stereo):
+     ``train --data-dir --high-res`` at 1280x720 in-process on a scene
+     the phase writes in the Shape-of-Motion layout (phase_pipeline's
+     synthetic scene over 16 frames: PNG frames and masks through
+     vis/png.py, inverse depths, the 40k tracks split between the 8
+     train frames as query frames, 2d_tracks/{a}_{b}.npy for every pair
+     of them, COLMAP binaries; the sharp frames in a ground-truth
+     directory), every PNG read back equal;
+     pipe_args()'s widths and PIPE_CUTS; stage wall times, step medians
+     and exact launches per stage (K1, K2/K3 and K5; 16 val frames), the
+     checkpoints, the test PNGs, a finite metrics.json; ``metrics
+     --gt-dir`` on the card against the CPU (1e-5 relative); then
+     sample_initial_bases_centers(mode="hdbscan") on the bench tracks
+     (40k x 69) on the card, timed, and card against CPU on 4k of them
+     (labels and the mutual-reachability matrix bit for bit) and on 4k
+     seeded blob points (labels) ({"stereo": ...} line);
  17. multiple devices (phase_multidevice): the bench-shape stage-2 step
      on several ranks (parallel/mesh.py), each rank a process of this
      script (``--multidevice-rank``): one rank per card over NCCL where
@@ -173,11 +189,13 @@ alpha to every pair up to the stop chunks instead.
 
 Prints a {"kernels": [...]} JSON line (each kernel's ``launches`` on
 its own driven path, ``launches_pipeline`` in phase_pipeline's first
-call, ``launches_multidevice_per_rank`` in phase_multidevice's compared
+call, ``launches_stereo`` in phase_stereo's call,
+``launches_multidevice_per_rank`` in phase_multidevice's compared
 steps and, for K5, ``launches_render_path`` in phase_viewer's
 render-path call), the step times, {"eval": ...}, {"pipeline": ...},
-{"viewer": ...}, {"flow": ...} and {"multidevice": ..., "plain_path":
-...} JSON lines, the card line, and last {"ok": true, "device": {...}}.
+{"stereo": ...}, {"viewer": ...}, {"flow": ...} and {"multidevice": ...,
+"plain_path": ...} JSON lines, the card line, and last {"ok": true,
+"device": {...}}.
 Any failed check raises (exit != 0).
 Exits non-zero without a result when no CUDA card is visible or when the
 package is not next to this file. Imports no JAX.
@@ -1431,12 +1449,10 @@ def phase_lifecycle(tr):
     80 resets the opacities."""
     from deblur4dgs_tpu_torch.configs import (
         LossesConfig, OptimizerConfig, SceneLRConfig)
-    from deblur4dgs_tpu_torch.data.observations import (
-        StaticObservations, TrackObservations)
+    from deblur4dgs_tpu_torch.data.observations import StaticObservations
     from deblur4dgs_tpu_torch.models.gaussians import pad_to_capacity
     from deblur4dgs_tpu_torch.models.move_model import init_move_model
-    from deblur4dgs_tpu_torch.models.scene import (
-        SceneModel, compute_poses_fg)
+    from deblur4dgs_tpu_torch.models.scene import SceneModel
     from deblur4dgs_tpu_torch.train import init as I
     from deblur4dgs_tpu_torch.train.checkpoints import (
         load_checkpoint, save_checkpoint, template_state)
@@ -1446,12 +1462,8 @@ def phase_lifecycle(tr):
 
     T = NUM_FRAMES
     scene0, batches = bench_scene_batches(DEV)
+    tracks = bench_tracks(scene0)
     with torch.no_grad():
-        xyz, _ = compute_poses_fg(scene0, torch.arange(
-            T, dtype=torch.float32, device=DEV))
-        seen = torch.ones(xyz.shape[:2], dtype=torch.bool, device=DEV)
-        tracks = TrackObservations(xyz.contiguous(), seen, ~seen,
-                                   seen.float(), scene0.fg.get_colors())
         normals = np.random.default_rng(7).normal(size=(NUM_BG, 3))
         normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
         points = StaticObservations(
@@ -2323,9 +2335,10 @@ def pipe_args():
 PIPE_BLUR = 7  # generate_dataset's blur samples (its default)
 
 
-def pipeline_call(tr, work, label):
-    """One CLI call (``main(pipe_args())`` with ``--log-every 1``) on
-    ``work``, the counters zeroed just before and read just after. Its
+def pipeline_call(tr, work, label, argv=None):
+    """One CLI call (``main(argv)``, by default pipe_args(), with
+    ``--log-every 1``) on ``work``, the counters zeroed just before and
+    read just after. Its
     stages come from the CLI's stage_callback: each stage runs from the
     previous stage's end (the call's start for 'static') to its own, so it
     holds the renders and the init before it, and 'testing' runs from the
@@ -2354,8 +2367,8 @@ def pipeline_call(tr, work, label):
     zero_launches(tr)
     t0 = time.time()
     marks.append(("start", t0, dict(tr.LAUNCHES)))
-    cli.main(pipe_args() + ["--work-dir", work, "--log-every", "1"],
-             stage_callback=on_stage)
+    cli.main((argv or pipe_args()) + ["--work-dir", work, "--log-every",
+                                      "1"], stage_callback=on_stage)
     torch.cuda.synchronize()
     marks.append(("testing", time.time(), dict(tr.LAUNCHES)))
     wall = marks[-1][1] - t0
@@ -2387,6 +2400,53 @@ def pipeline_call(tr, work, label):
     return launches, stages, wall, metrics, static
 
 
+def check_pipeline_launches(label, launches, stages, wins, F, V,
+                            dataset_renders):
+    """Exact launches per stage of a pipeline_call with F train frames, V
+    val frames and ``dataset_renders`` K5 renders made by the CLI before
+    stage 1 (the synthetic dataset's; none for a scene on disk). A stage
+    holds what ran since the one before: 'static' the dataset's renders,
+    'dynamicA' the two stage-1 bg renders (full and x4), the first window
+    phase A's guide renders; each stage's validation (epoch 0, its last)
+    renders its val frames (V, a window's V / F per train frame) and the
+    train videos at the CLI's --save-videos-every (epoch 0 % 50 == 0) one
+    per train frame; testing refines every val frame."""
+    from deblur4dgs_tpu_torch.ops.tiling import default_bucket_spec, num_tiles
+
+    nb = len(default_bucket_spec(num_tiles((W, H))[0] * num_tiles((W, H))[1],
+                                 TILE_CAP))
+    tx4, ty4 = num_tiles((W // 4, H // 4))
+    nb4 = len(default_bucket_spec(tx4 * ty4, min(4 * TILE_CAP, 4096)))
+    S, ratio = PIPE_STEPS, V // F
+    want = {"static": {"window_fwd": 3 * nb * S, "window_bwd": 3 * nb * S,
+                       "dense_fwd": dataset_renders + V + F},
+            "dynamicA": {"window_fwd": 2 * nb4 * S, "window_bwd": 2 * nb4 * S,
+                         "dense_fwd": 2 * F + S + V + F, "dense_bwd": S},
+            "testing": {"dense_fwd": V * (PIPE_POSE_ITERS + 1),
+                        "dense_bwd": V * PIPE_POSE_ITERS}}
+    first = True
+    for e in stages:
+        if e["stage"].startswith("win_"):
+            lo, hi = int(e["stage"][4:6]), int(e["stage"][6:8])
+            want[e["stage"]] = {
+                "window_fwd": 2 * nb * S, "window_bwd": 2 * nb * S,
+                "dense_fwd": F * first + S + (ratio + 1) * (hi - lo),
+                "dense_bwd": S}
+            first = False
+        w_ = want.get(e["stage"], {})
+        for k, v in e["launches"].items():
+            check(v == w_.get(k, 0), f"{label} {e['stage']}: {k} launched "
+                  f"{v} times, expected {w_.get(k, 0)}")
+        n_steps = len(e["steps_ms"])
+        check(n_steps == (0 if e["stage"] == "testing" else S),
+              f"{label} {e['stage']}: {n_steps} logged steps")
+    for k in ("window_fwd", "window_bwd", "dense_fwd", "dense_bwd"):
+        check(launches[k] > 0, f"{label}: {k} never launched")
+    stage_tags = [e["stage"] for e in stages]
+    check(stage_tags == ["static", "dynamicA"] + wins + ["testing"],
+          f"{label} stages {stage_tags}")
+
+
 def phase_pipeline(tr, card):
     """The port's CLI end to end at 1280x720 (pipe_args()): stage 1, phase A
     at x4 (cap 4096), the ceil(8/5) = 2 phase-B windows, per-window testing
@@ -2397,7 +2457,6 @@ def phase_pipeline(tr, card):
     stage 2 left stage 1's scene unchanged."""
     import shutil
 
-    from deblur4dgs_tpu_torch.ops.tiling import default_bucket_spec, num_tiles
     from deblur4dgs_tpu_torch.vis.png import read_apng, read_png
 
     work = PIPE_WORK
@@ -2433,46 +2492,8 @@ def phase_pipeline(tr, card):
               f"pipeline: train video {kind}_0 holds {frames.shape}")
         videos[kind] = list(frames.shape)
 
-    # exact launches per stage; a stage holds what ran since the one
-    # before: 'static' the dataset's renders (PIPE_BLUR + 2 per frame),
-    # 'dynamicA' the two stage-1 bg renders (full and x4), the first
-    # window phase A's guide renders
-    nb = len(default_bucket_spec(num_tiles((W, H))[0] * num_tiles((W, H))[1],
-                                 TILE_CAP))
-    tx4, ty4 = num_tiles((W // 4, H // 4))
-    nb4 = len(default_bucket_spec(tx4 * ty4, min(4 * TILE_CAP, 4096)))
-    # and each stage's validation (epoch 0, its last) the train videos at
-    # the CLI's --save-videos-every (epoch 0 % 50 == 0): one render per
-    # train frame (the second F of 'static' and 'dynamicA', a window's
-    # hi - lo once more)
-    S, F = PIPE_STEPS, PIPE_FRAMES
-    want = {"static": {"window_fwd": 3 * nb * S, "window_bwd": 3 * nb * S,
-                       "dense_fwd": F * (PIPE_BLUR + 2) + F + F},
-            "dynamicA": {"window_fwd": 2 * nb4 * S, "window_bwd": 2 * nb4 * S,
-                         "dense_fwd": 2 * F + S + F + F, "dense_bwd": S},
-            "testing": {"dense_fwd": F * (PIPE_POSE_ITERS + 1),
-                        "dense_bwd": F * PIPE_POSE_ITERS}}
-    first = True
-    for e in stages:
-        if e["stage"].startswith("win_"):
-            lo, hi = int(e["stage"][4:6]), int(e["stage"][6:8])
-            want[e["stage"]] = {"window_fwd": 2 * nb * S,
-                                "window_bwd": 2 * nb * S,
-                                "dense_fwd": F * first + S + 2 * (hi - lo),
-                                "dense_bwd": S}
-            first = False
-        w_ = want.get(e["stage"], {})
-        for k, v in e["launches"].items():
-            check(v == w_.get(k, 0), f"pipeline {e['stage']}: {k} launched "
-                  f"{v} times, expected {w_.get(k, 0)}")
-        n_steps = len(e["steps_ms"])
-        check(n_steps == (0 if e["stage"] == "testing" else S),
-              f"pipeline {e['stage']}: {n_steps} logged steps")
-    for k in ("window_fwd", "window_bwd", "dense_fwd", "dense_bwd"):
-        check(launches[k] > 0, f"pipeline: {k} never launched")
-    stage_tags = [e["stage"] for e in stages]
-    check(stage_tags == ["static", "dynamicA"] + wins + ["testing"],
-          f"pipeline stages {stage_tags}")
+    check_pipeline_launches("pipeline", launches, stages, wins, PIPE_FRAMES,
+                            PIPE_FRAMES, PIPE_FRAMES * (PIPE_BLUR + 2))
     a_over = next(e["tile_overflow"] for e in stages
                   if e["stage"] == "dynamicA")
     check(a_over is not None, "phase A logged no tile_overflow")
@@ -2505,6 +2526,322 @@ def phase_pipeline(tr, card):
         "stages": stages,
         "resumed_stages": [{k: e[k] for k in ("stage", "s", "launches")}
                            for e in stages2],
+    }
+
+
+# phase_stereo: the user's entry point for a real scene, ``train
+# --data-dir``, on a scene that this script writes in the Shape-of-Motion
+# layout StereoDataset reads: phase_pipeline's synthetic 1280x720 scene
+# (NUM_FG fg and PIPE_NUM_BG bg ground-truth Gaussians, NUM_FG tracks) over
+# STEREO_FRAMES frames, the sharp frames in a ground-truth directory of
+# their own; the CLI's widths and PIPE_CUTS as in phase_pipeline, no
+# resumed call (phase_pipeline proves resume). Then ``metrics --gt-dir``
+# on the card and the CPU, and HDBSCAN on the bench scene's tracks.
+STEREO_FRAMES = 16  # on disk: the even 8 train, in 2 windows; 16 val
+STEREO_WORK = os.path.join(HERE, "build", "chip_stereo")
+TRACK_LOGIT = 5.0  # |occlusion / distance logit| of the written tracks
+STEREO_METRICS_RTOL = 1e-5  # metrics --gt-dir, card against CPU
+HDB_SUBSET = 4000  # tracks of the card-vs-CPU HDBSCAN check
+
+
+def stereo_args(data_dir):
+    """phase_stereo's CLI call: pipe_args()'s widths and cuts on a scene
+    directory (the model's capacities are the CLI's defaults in both)."""
+    return ["train", "--data-dir", data_dir, "--high-res", "--device",
+            DEV] + PIPE_CUTS
+
+
+def write_colmap_binary(sparse, K, w2cs, names, wh):
+    """COLMAP's binary sparse model: cameras.bin with one PINHOLE camera
+    (fx, fy, cx, cy) and images.bin with each frame's world-to-camera
+    rotation as a unit quaternion (w, x, y, z) and translation, no 2D
+    points (the format data/colmap.py reads)."""
+    import struct
+
+    from deblur4dgs_tpu_torch.data.colmap import rotmat_to_qvec
+
+    with open(os.path.join(sparse, "cameras.bin"), "wb") as f:
+        f.write(struct.pack("<QiiQQ", 1, 1, 1, wh[0], wh[1]))
+        f.write(struct.pack("<4d", K[0, 0], K[1, 1], K[0, 2], K[1, 2]))
+    with open(os.path.join(sparse, "images.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(names)))
+        for i, (name, w2c) in enumerate(zip(names, w2cs)):
+            w2c = np.asarray(w2c, np.float64)
+            f.write(struct.pack("<i4d3di", i + 1, *rotmat_to_qvec(w2c[:3, :3]),
+                                *w2c[:3, 3], 1))
+            f.write(name.encode() + b"\0" + struct.pack("<Q", 0))
+
+
+def write_stereo_scene(root, gt_dir):
+    """The synthetic scene (the CLI's make_scene + generate_dataset on the
+    tile path) written as a scene directory: images/ (blurry frames) and
+    flow3d_preprocessed/masks/ as PNGs, aligned_depth_anything_colmap/
+    (inverse depth), 2d_tracks/{a}_{b}.npy for every pair of train frames
+    (query frame a's tracks at frame b: x, y, occlusion logit, distance
+    logit; the NUM_FG tracks split between the query frames),
+    colmap/sparse/; the sharp frames as {name}.png in gt_dir. Returns
+    ({path: the array written}, the tracks' visible share)."""
+    from deblur4dgs_tpu_torch.data import synthetic
+    from deblur4dgs_tpu_torch.vis.png import write_png
+
+    sscene = synthetic.make_scene(
+        seed=0, num_fg=NUM_FG, num_bg=PIPE_NUM_BG, num_frames=STEREO_FRAMES,
+        img_wh=(W, H), device=DEV)
+    data = synthetic.generate_dataset(sscene, num_tracks=NUM_FG,
+                                      fast_renderer=True)
+    del sscene
+    pre = os.path.join(root, "flow3d_preprocessed")
+    dirs = {k: os.path.join(pre, k) for k in (
+        "masks", "aligned_depth_anything_colmap", "2d_tracks",
+        "colmap/sparse")}
+    dirs["images"] = os.path.join(root, "images")
+    for d in list(dirs.values()) + [gt_dir]:
+        os.makedirs(d, exist_ok=True)
+    u8 = lambda x: (np.clip(x, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    names = [f"{i:05d}" for i in range(STEREO_FRAMES)]
+    written = {}
+    for i, n in enumerate(names):
+        for path, img in (
+                (os.path.join(dirs["images"], f"{n}.png"), u8(data.imgs[i])),
+                (os.path.join(dirs["masks"], f"{n}.png"),
+                 (data.masks[i] > 0.5).astype(np.uint8) * 255),
+                (os.path.join(gt_dir, f"{n}.png"), u8(data.sharp_imgs[i]))):
+            write_png(path, img)
+            written[path] = img
+        np.save(os.path.join(dirs["aligned_depth_anything_colmap"],
+                             f"{n}.npy"),
+                (1.0 / np.maximum(data.depths[i], 1e-3)).astype(np.float32))
+    occ = np.where(data.track_visibles, -TRACK_LOGIT, TRACK_LOGIT)
+    train = list(range(0, STEREO_FRAMES, 2))  # the loader's train frames
+    for i, a in enumerate(train):
+        # TAPIR's layout: each query frame its own query points (here the
+        # tracks i mod F seen in frame a), {a}_{b} their positions at b
+        sel = np.nonzero((np.arange(NUM_FG) % len(train) == i)
+                         & data.track_visibles[a])[0]
+        conf = np.full((len(sel), 1), -TRACK_LOGIT)
+        for b in train:
+            np.save(os.path.join(dirs["2d_tracks"],
+                                 f"{names[a]}_{names[b]}.npy"),
+                    np.concatenate([data.tracks_2d[b][sel],
+                                    occ[b][sel, None], conf], -1
+                                   ).astype(np.float32))
+    write_colmap_binary(dirs["colmap/sparse"], data.Ks[0], data.w2cs,
+                        [f"{n}.png" for n in names], (W, H))
+    return written, float(data.track_visibles[train].mean())
+
+
+def metrics_call(args):
+    """The CLI's ``metrics`` subcommand in-process: its printed JSON."""
+    import io
+
+    from deblur4dgs_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["metrics"] + args)
+    return json.loads(buf.getvalue())
+
+
+def bench_tracks(scene0):
+    """The bench scene's tracks: its fg Gaussians' world positions over its
+    NUM_FRAMES frames, all visible, confidence 1."""
+    from deblur4dgs_tpu_torch.data.observations import TrackObservations
+    from deblur4dgs_tpu_torch.models.scene import compute_poses_fg
+
+    with torch.no_grad():
+        xyz, _ = compute_poses_fg(scene0, torch.arange(
+            NUM_FRAMES, dtype=torch.float32, device=DEV))
+        seen = torch.ones(xyz.shape[:2], dtype=torch.bool, device=DEV)
+        return TrackObservations(xyz.contiguous(), seen, ~seen, seen.float(),
+                                 scene0.fg.get_colors())
+
+
+def phase_hdbscan():
+    """sample_initial_bases_centers(mode="hdbscan") on the bench tracks
+    (NUM_FG x 3 (NUM_FRAMES - 1) velocity directions) on the card, timed;
+    its parts timed once more; the card's labels and mutual-reachability
+    matrix against the CPU's on the first HDB_SUBSET tracks; the card's
+    labels against the CPU's on HDB_SUBSET seeded points in 8 blobs and
+    uniform noise (21 dimensions), where clusters are sure to form."""
+    from deblur4dgs_tpu_torch.data.observations import TrackObservations
+    from deblur4dgs_tpu_torch.train import hdbscan as HD
+    from deblur4dgs_tpu_torch.train import init as I
+
+    tracks = bench_tracks(bench_scene_batches(DEV)[0])
+    torch.cuda.synchronize()
+    t0 = time.time()
+    centers, labels = I.sample_initial_bases_centers(
+        0, tracks, LIFE_BASES, mode="hdbscan", device=DEV)
+    seconds = time.time() - t0
+    check(np.isfinite(centers).all() and len(centers) == labels.max() + 1,
+          f"hdbscan: centres {centers.shape}, labels up to {labels.max()}")
+    xyz = tracks.xyz.cpu().numpy()  # all visible: no interpolation
+    vel = xyz[:, 1:] - xyz[:, :-1]
+    x = (vel / (np.linalg.norm(vel, axis=-1, keepdims=True) + 1e-5)
+         ).reshape(len(xyz), -1).astype(np.float64)
+    n = len(x)
+    parts = {}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    mr = HD.mutual_reachability(torch.as_tensor(x, device=DEV), 20)
+    torch.cuda.synchronize()
+    parts["distances_s"] = time.time() - t0
+    t0 = time.time()
+    mst = HD.prim_mst(mr)
+    parts["prim_s"] = time.time() - t0
+    del mr
+    t0 = time.time()
+    tree = HD.condense_tree(HD.single_linkage(mst), 20)
+    raw = HD.get_clusters(tree, HD.compute_stability(tree), max(n // 4, 21))
+    parts["tree_s"] = time.time() - t0
+    check(np.array_equal(np.where(raw < 0, 0, raw), labels),
+          "hdbscan: the parts' labels differ from the entry point's")
+    sub = TrackObservations(*[v[:HDB_SUBSET] for v in tracks])
+    xs = torch.as_tensor(x[:HDB_SUBSET])
+    mr_card = HD.mutual_reachability(xs.to(DEV), 20).cpu()
+    mr_cpu = HD.mutual_reachability(xs, 20)
+    check(torch.equal(mr_card, mr_cpu), "hdbscan: the card's mutual "
+          "reachability differs from the CPU's "
+          f"(max {float((mr_card - mr_cpu).abs().max()):.3e})")
+    _, l_card = I.sample_initial_bases_centers(
+        0, sub, LIFE_BASES, mode="hdbscan", device=DEV)
+    t0 = time.time()
+    _, l_cpu = I.sample_initial_bases_centers(
+        0, sub, LIFE_BASES, mode="hdbscan", device="cpu")
+    cpu_s = time.time() - t0
+    check(np.array_equal(l_card, l_cpu),
+          f"hdbscan: card and CPU labels differ on {HDB_SUBSET} tracks "
+          f"({int((l_card != l_cpu).sum())} of them)")
+    rng = np.random.default_rng(0)
+    blobs = rng.normal(size=(8, 21))[rng.integers(0, 8, HDB_SUBSET)]
+    xs = blobs + 0.2 * rng.normal(size=blobs.shape)
+    wild = rng.uniform(size=HDB_SUBSET) < 0.2
+    xs[wild] = rng.uniform(-2, 2, (int(wild.sum()), 21))
+    cap = max(HDB_SUBSET // 4, 21)
+    s_card, s_cpu = (HD.hdbscan_labels(xs, 20, cap, device=d)
+                     for d in (DEV, "cpu"))
+    check(np.array_equal(s_card, s_cpu) and s_cpu.max() >= 1,
+          f"hdbscan: card and CPU labels differ on the blobs "
+          f"({int((s_card != s_cpu).sum())} of them), or no clusters")
+    torch.cuda.empty_cache()
+    out = {"tracks": n, "dims": x.shape[1], "seconds": seconds,
+           "clusters": int(raw.max()) + 1, "noise": int((raw < 0).sum()),
+           "largest": int(np.bincount(raw[raw >= 0]).max()) if raw.max() >= 0
+           else 0, **parts, "subset": HDB_SUBSET,
+           "subset_clusters": int(l_cpu.max()) + 1, "subset_cpu_s": cpu_s,
+           "subset_card_equals_cpu": True,
+           "blobs_clusters": int(s_cpu.max()) + 1,
+           "blobs_noise": int((s_cpu < 0).sum()),
+           "blobs_card_equals_cpu": True}
+    print(f"# hdbscan on {n} x {x.shape[1]}: {seconds:.3f} s through the "
+          f"entry point ({parts['distances_s']:.3f} s distances, "
+          f"{parts['prim_s']:.3f} s Prim, {parts['tree_s']:.3f} s tree), "
+          f"{out['clusters']} clusters, {out['noise']} noise; {HDB_SUBSET} "
+          f"tracks: card == CPU ({cpu_s:.3f} s on the CPU); {HDB_SUBSET} "
+          f"blob points: {out['blobs_clusters']} clusters, "
+          f"{out['blobs_noise']} noise, card == CPU")
+    return out
+
+
+def phase_stereo(tr, card):
+    """``train --data-dir --high-res`` at 1280x720 end to end on a scene
+    this phase writes (write_stereo_scene): every frame and mask read back
+    through vis/png.py equal to what was written, the loader's time, the
+    CLI call (pipeline_call: stage wall times, step medians, exact
+    launches per stage, check_pipeline_launches), the checkpoints, the test
+    PNGs and a finite metrics.json; ``metrics --gt-dir`` on the card
+    against the CPU (STEREO_METRICS_RTOL); then phase_hdbscan."""
+    import shutil
+
+    from deblur4dgs_tpu_torch.data.stereo import (
+        StereoDataConfig, StereoDataset)
+    from deblur4dgs_tpu_torch.vis.png import read_png
+
+    work = STEREO_WORK
+    scene_dir, gt_dir = os.path.join(work, "scene"), os.path.join(work, "gt")
+    run = os.path.join(work, "run")
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    written, vis_share = write_stereo_scene(scene_dir, gt_dir)
+    write_s = time.time() - t0
+    t0 = time.time()
+    for path, img in written.items():
+        back = read_png(path)
+        check(back.dtype == img.dtype and np.array_equal(back, img),
+              f"stereo: read_png({path}) differs from the array written")
+    read_s = time.time() - t0
+    t0 = time.time()
+    train_ds = StereoDataset(StereoDataConfig(
+        data_dir=scene_dir, intrinsics_scale=1.0))
+    val_ds = StereoDataset(StereoDataConfig(
+        data_dir=scene_dir, split="val", intrinsics_scale=1.0),
+        scene_norm=train_ds.scene_norm)
+    load_s = time.time() - t0
+    F = STEREO_FRAMES // 2
+    check(len(train_ds) == F and len(val_ds) == STEREO_FRAMES
+          and train_ds.imgs.shape == (F, H, W, 3)
+          and set(np.unique(train_ds.masks)) <= {0.0, 1.0},
+          f"stereo: loaded {len(train_ds)} / {len(val_ds)} frames, "
+          f"{train_ds.imgs.shape}")
+    del train_ds, val_ds
+    print(f"# stereo scene: {len(written)} PNGs written in {write_s:.3f} s "
+          f"(with the dataset's renders), read back equal in {read_s:.3f} "
+          f"s; StereoDataset train + val loaded in {load_s:.3f} s; tracks "
+          f"visible {vis_share:.4f}")
+
+    launches, stages, wall, metrics, _ = pipeline_call(
+        tr, run, "stereo (train --data-dir)", stereo_args(scene_dir))
+    check(all(np.isfinite(v) for v in metrics.values())
+          and 0.0 <= metrics["val/ssim"] <= 1.0,
+          f"stereo metrics.json not finite: {metrics}")
+    wins = sorted(d for d in os.listdir(os.path.join(run, "ckpts"))
+                  if d.startswith("win_"))
+    check(len(wins) == 2, f"stereo phase-B windows {wins}")
+    for tag in ["static", "dynamicA"] + wins:
+        check(os.path.isfile(os.path.join(run, "ckpts", tag, "last")),
+              f"stereo: no checkpoint for {tag}")
+    n_png = 0
+    for w in wins:
+        d = os.path.join(run, "results", w, "rgb_test_optim")
+        for f in sorted(os.listdir(d)):
+            img = read_png(os.path.join(d, f))
+            check(img.shape == (H, W, 3), f"{d}/{f}: shape {img.shape}")
+            n_png += 1
+    check(n_png == 2 * STEREO_FRAMES, f"stereo: {n_png} test PNGs")
+    # the loader's val split holds every frame on disk, its train split
+    # the even ones; the scene is on disk: the CLI renders no dataset
+    check_pipeline_launches("stereo", launches, stages, wins, F,
+                            STEREO_FRAMES, 0)
+
+    margs = ["--result-dir", os.path.join(run, "results"), "--gt-dir",
+             gt_dir]
+    t0 = time.time()
+    m_card = metrics_call(margs + ["--device", DEV])
+    metrics_s = time.time() - t0
+    m_cpu = metrics_call(margs + ["--device", "cpu"])
+    gap = max(abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
+              for k in m_cpu)
+    check(set(m_card) == set(m_cpu) == {"psnr", "ssim"}
+          and all(np.isfinite(v) for v in m_card.values())
+          and gap <= STEREO_METRICS_RTOL,
+          f"stereo metrics --gt-dir: card {m_card}, CPU {m_cpu}")
+    print(f"# stereo metrics --gt-dir: card {m_card} in {metrics_s:.3f} s, "
+          f"CPU {m_cpu}, largest relative gap {gap:.3e}")
+    torch.cuda.empty_cache()
+    hdb = phase_hdbscan()
+    return {
+        "card": card, "argv": stereo_args("<scene>"), "cuts": PIPE_CUTS,
+        "img_wh": [W, H], "frames_on_disk": STEREO_FRAMES,
+        "train_frames": F, "val_frames": STEREO_FRAMES,
+        "gt_gaussians": [NUM_FG, PIPE_NUM_BG], "tracks": NUM_FG,
+        "tracks_visible_share": vis_share, "scene_write_s": write_s,
+        "png_read_back_s": read_s, "pngs_read_back": len(written),
+        "dataset_load_s": load_s, "wall_s": wall, "metrics": metrics,
+        "launches": launches, "stages": stages,
+        "metrics_gt_dir": {"card": m_card, "cpu": m_cpu, "rel_gap": gap,
+                           "card_s": metrics_s},
+        "hdbscan": hdb,
     }
 
 
@@ -3310,6 +3647,9 @@ def main():
     pipe = phase_pipeline(tr, card)
     pipe["phase_s"] = time.time() - t0
     t0 = time.time()
+    stereo = phase_stereo(tr, card)
+    stereo["phase_s"] = time.time() - t0
+    t0 = time.time()
     view = phase_viewer(tr, card)
     view["phase_s"] = time.time() - t0
     t0 = time.time()
@@ -3344,6 +3684,7 @@ def main():
                 "launches": launches[k],
                 "launches_path": path,
                 "launches_pipeline": pipe["launches"][k],
+                "launches_stereo": stereo["launches"][k],
                 "timed_on": timed_on,
                 "max_abs_err": errs.v[k][0],
                 "max_rel_err": errs.v[k][1],
@@ -3402,6 +3743,7 @@ def main():
               f"{W * H / med:.1f} rays/s; card {card}")
     print(json.dumps({"eval": ev}))
     print(json.dumps({"pipeline": pipe}))
+    print(json.dumps({"stereo": stereo}))
     print(json.dumps({"viewer": view}))
     print(json.dumps({"flow": flow}))
     print(json.dumps({"multidevice": md, "plain_path": plain_path}))
@@ -3414,6 +3756,16 @@ def main():
           f"{pipe['resumed_wall_s']:.3f} s, phase {pipe['phase_s']:.1f} s; "
           f"viewer phase {view['phase_s']:.1f} s; flow phase "
           f"{flow['phase_s']:.1f} s")
+    for e in stereo["stages"]:
+        med = statistics.median(e["steps_ms"]) if e["steps_ms"] else None
+        print(f"# stereo stage {e['stage']}: {e['s']:.3f} s, step median "
+              f"{med} ms; card {card}")
+    hdb = stereo["hdbscan"]
+    print(f"# stereo (train --data-dir, {W}x{H}): {stereo['wall_s']:.3f} s, "
+          f"dataset load {stereo['dataset_load_s']:.3f} s, phase "
+          f"{stereo['phase_s']:.1f} s; hdbscan {hdb['tracks']} x "
+          f"{hdb['dims']}: {hdb['seconds']:.3f} s, {hdb['clusters']} "
+          f"clusters; card {card}")
     print(f"# render-path ({W}x{H}): {view['render_path']['frame_ms']:.3f} "
           f"ms per frame, K5 forward "
           f"{view['render_path']['k5_device_ms_per_frame']:.3f} ms of device "

@@ -2,9 +2,10 @@
 
 PyTorch port of deblur4dgs_tpu/data/stereo.py (the low- and high-res
 variants differ only in the ``Ks /= 2.5`` intrinsics scaling, here the
-``intrinsics_scale`` knob). Frames are read with imageio, imported where
-they are read, so the loader runs where imageio is installed; arrays stay
-numpy and the track / point observations are CPU tensors.
+``intrinsics_scale`` knob). Frames and masks are PNGs read by the port's
+own decoder (vis/png.py::read_png, which returns what the reference's
+imageio.imread does), so the loader runs where imageio is not installed;
+arrays stay numpy and the track / point observations are CPU tensors.
 
 Loads a Shape-of-Motion-preprocessed scene directory:
 
@@ -47,6 +48,7 @@ from deblur4dgs_tpu_torch.data.utils import (
     parse_tapir_track_info,
 )
 from deblur4dgs_tpu_torch.ops import lie
+from deblur4dgs_tpu_torch.vis.png import read_png
 
 
 @dataclass
@@ -63,12 +65,6 @@ class StereoDataConfig:
     load_from_cache: bool = True
     max_train_frames: int = 24
     seed: int = 0
-
-
-def _imread(path):
-    import imageio.v3 as iio
-
-    return iio.imread(path)
 
 
 class StereoDataset:
@@ -119,7 +115,7 @@ class StereoDataset:
         self.imgs = (
             np.stack(
                 [
-                    _imread(osp.join(d, "images", f + ".png"))[..., :3]
+                    read_png(osp.join(d, "images", f + ".png"))[..., :3]
                     for f in self.frame_names
                 ]
             ).astype(np.float32)
@@ -129,7 +125,7 @@ class StereoDataset:
         masks = (
             np.stack(
                 [
-                    _imread(
+                    read_png(
                         osp.join(d, "flow3d_preprocessed/masks", f + ".png")
                     )
                     for f in self.frame_names

@@ -32,15 +32,20 @@ def masked_ssim(
     preds, targets, masks=None, kernel_size=11, sigma=1.5, k1=0.01, k2=0.03,
     data_range=1.0,
 ):
-    """Mask-aware SSIM of one (H, W, 3) image pair (a 0-d tensor)."""
-    preds, targets = _t(preds), _t(targets)
+    """Mask-aware SSIM of one (H, W, 3) image pair (a float32 0-d tensor),
+    computed in float64: its variances E[x^2] - E[x]^2 cancel, so in
+    float32 the mean SSIM of a 1280x720 pair lands ~1e-5 (relative) off
+    the float64 value, by an amount that depends on the order of the
+    filter's sums (an H100's and the CPU's differed by 2e-5)."""
+    f64 = lambda x: _t(x).to(torch.float64)
+    preds, targets = f64(preds), f64(targets)
     if masks is None:
         masks = torch.ones_like(preds[..., 0])
-    masks = _t(masks)
+    masks = f64(masks)
 
     hw = kernel_size // 2
     shift = (2 * hw - kernel_size + 1) / 2
-    f_i = ((torch.arange(kernel_size, dtype=torch.float32,
+    f_i = ((torch.arange(kernel_size, dtype=torch.float64,
                          device=preds.device) - hw + shift) / sigma) ** 2
     filt = torch.exp(-0.5 * f_i)
     filt = filt / filt.sum()
@@ -75,7 +80,7 @@ def masked_ssim(
     ssim_map = ((2 * mu01 + c1) * (2 * s01 + c2)) / (
         (mu00 + mu11 + c1) * (s00 + s11 + c2)
     )
-    return torch.mean(ssim_map)
+    return torch.mean(ssim_map).to(torch.float32)
 
 
 def compute_pck(preds, targets, threshold: float) -> float:

@@ -3,8 +3,8 @@
 PyTorch port of deblur4dgs_tpu/train/init.py (the reference's
 flow3d/init_utils.py). Host-side preprocessing stays numpy, as in the JAX
 package, with its own copies of the helpers (no scikit-learn: the k-nearest
-neighbours come from scipy's cKDTree); the Procrustes fits and the initial
-optimization run on the caller's device:
+neighbours come from scipy's cKDTree, HDBSCAN from train/hdbscan.py); the
+Procrustes fits and the initial optimization run on the caller's device:
 
   * fg Gaussians from canonical-frame track positions (knn-mean scales,
     logit colors/opacities);
@@ -37,6 +37,7 @@ from deblur4dgs_tpu_torch.models.motion_bases import (
 )
 from deblur4dgs_tpu_torch.ops import lie
 from deblur4dgs_tpu_torch.train import losses as L
+from deblur4dgs_tpu_torch.train.hdbscan import hdbscan_labels
 
 B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.scale_by_adam defaults
 
@@ -155,23 +156,28 @@ def kmeans(x: np.ndarray, k: int, iters: int = 50, seed: int = 0) -> np.ndarray:
 
 def sample_initial_bases_centers(
     cano_t: int, tracks_3d: TrackObservations, num_bases: int, seed: int = 0,
-    mode: str = "kmeans",
+    mode: str = "kmeans", device="cuda",
 ):
     """init_utils.py:534-592: cluster velocity directions; centres are the
     per-cluster median canonical positions. Returns (centers, labels) as
-    numpy. Only ``mode="kmeans"``: the reference's "hdbscan" needs
-    scikit-learn, which the port does not use."""
-    if mode != "kmeans":
-        raise NotImplementedError(
-            f"mode={mode!r}: the port clusters with k-means only (the "
-            "reference's 'hdbscan' mode uses scikit-learn's HDBSCAN)"
-        )
+    numpy. ``mode="hdbscan"`` clusters as the reference's scikit-learn
+    HDBSCAN(min_cluster_size=20, max_cluster_size=max(N // 4, 21)) does
+    (train/hdbscan.py, its distances on ``device``), noise joins cluster 0
+    and the cluster count replaces ``num_bases``; any other mode is the
+    host's k-means."""
     xyz = _np(tracks_3d.xyz)
     xyz_interp = interp_masked(xyz, _np(tracks_3d.visibles))
     vel = xyz_interp[:, 1:] - xyz_interp[:, :-1]
     vel_dirs = (vel / (np.linalg.norm(vel, axis=-1, keepdims=True) + 1e-5)
                 ).reshape(xyz.shape[0], -1)
-    labels = kmeans(vel_dirs, num_bases, seed=seed)
+    if mode == "hdbscan":
+        labels = hdbscan_labels(
+            vel_dirs, min_cluster_size=20,
+            max_cluster_size=max(xyz.shape[0] // 4, 21), device=device)
+        labels = np.where(labels < 0, 0, labels)  # noise -> cluster 0
+        num_bases = int(labels.max()) + 1
+    else:
+        labels = kmeans(vel_dirs, num_bases, seed=seed)
     centers = np.stack(
         [np.median(xyz[labels == i, cano_t], axis=0) for i in range(num_bases)]
     )

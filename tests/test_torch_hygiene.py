@@ -1,8 +1,7 @@
 """Port hygiene: no JAX in the port (nor anything else the card's machine
 lacks: scikit-learn, orbax, optax, tensorboard, matplotlib, cv2, imageio,
 Pillow), no kernel launches on CPU, no silent CPU fallback when CUDA is
-asked for. One import is allowed: data/stereo.py reads its JPEG frames
-with imageio (the card's machine has no JPEG decoder yet)."""
+asked for."""
 
 import ast
 import os
@@ -24,7 +23,7 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "flax", "deblur4dgs_tpu",
              "sklearn", "tensorboard", "tensorboardX", "matplotlib", "cv2",
              "imageio", "PIL")
 # (file, module) imports allowed despite FORBIDDEN
-ALLOWED = {("deblur4dgs_tpu_torch/data/stereo.py", "imageio")}
+ALLOWED = set()
 
 
 def _imports(path):
@@ -51,7 +50,7 @@ def test_no_forbidden_imports_in_source():
     ]
     bad = [x for x in found if x not in ALLOWED]
     assert not bad, bad
-    assert set(found) == ALLOWED  # the exception is still the one import
+    assert set(found) == ALLOWED
 
 
 def test_importing_the_port_loads_no_jax():

@@ -83,8 +83,11 @@ def test_interp_centers_and_weights_exact():
     tc, tl = ti.sample_initial_bases_centers(2, tt_, 3, seed=1)
     np.testing.assert_array_equal(tl, jl)
     np.testing.assert_array_equal(tc, jc)
-    with pytest.raises(NotImplementedError, match="hdbscan"):
-        ti.sample_initial_bases_centers(2, tt_, 3, mode="hdbscan")
+    jc, jl = ji.sample_initial_bases_centers(2, jt_, 3, mode="hdbscan")
+    tc, tl = ti.sample_initial_bases_centers(2, tt_, 3, mode="hdbscan",
+                                             **CPU)
+    np.testing.assert_array_equal(tl, jl)
+    np.testing.assert_array_equal(tc, jc)
     cl = arrs[0][:50].swapaxes(0, 1)
     vis = arrs[1][:50].swapaxes(0, 1)
     np.testing.assert_array_equal(ti.get_weights_for_procrustes(cl, vis),
