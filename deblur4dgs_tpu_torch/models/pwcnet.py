@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from deblur4dgs_tpu_torch import resolve_device
+from deblur4dgs_tpu_torch.utils.profiling import span
 
 _EXTRACTOR_DIMS = [(3, 16), (16, 32), (32, 64), (64, 96), (96, 128),
                    (128, 196)]
@@ -64,6 +65,7 @@ class _Decoder(nn.Module):
     def __init__(self, level: int):
         super().__init__()
         self.level = level
+        self.span_name = f"d4.pwcnet.level{level}"
         cur = _DEC_CURRENT[level]
         if level < 6:
             self.netUpflow = nn.ConvTranspose2d(2, 2, 4, 2, 1)
@@ -79,17 +81,19 @@ class _Decoder(nn.Module):
         self.netSix = nn.Sequential(nn.Conv2d(cur + 448, 2, 3, 1, 1))
 
     def forward(self, f1, f2, prev):
-        if prev is None:
-            feat = F.leaky_relu(correlation(f1, f2), 0.1)
-        else:
-            flow_in = self.netUpflow(prev["flow"])
-            feat_up = self.netUpfeat(prev["feat"])
-            warped, _ = backwarp(f2, flow_in * _BACKWARP_SCALE[self.level])
-            vol = F.leaky_relu(correlation(f1, warped), 0.1)
-            feat = torch.cat([vol, f1, flow_in, feat_up], 1)
-        for name in ("netOne", "netTwo", "netThr", "netFou", "netFiv"):
-            feat = torch.cat([getattr(self, name)(feat), feat], 1)
-        return {"flow": self.netSix(feat), "feat": feat}
+        with span(self.span_name):
+            if prev is None:
+                feat = F.leaky_relu(correlation(f1, f2), 0.1)
+            else:
+                flow_in = self.netUpflow(prev["flow"])
+                feat_up = self.netUpfeat(prev["feat"])
+                warped, _ = backwarp(f2,
+                                     flow_in * _BACKWARP_SCALE[self.level])
+                vol = F.leaky_relu(correlation(f1, warped), 0.1)
+                feat = torch.cat([vol, f1, flow_in, feat_up], 1)
+            for name in ("netOne", "netTwo", "netThr", "netFou", "netFiv"):
+                feat = torch.cat([getattr(self, name)(feat), feat], 1)
+            return {"flow": self.netSix(feat), "feat": feat}
 
 
 class _Refiner(nn.Module):
@@ -119,13 +123,15 @@ class PWCNet(nn.Module):
 
     def forward(self, first, second):
         """Coarse-to-fine flow at 1/4 resolution; (B, 3, H, W) inputs."""
-        f1 = self.netExtractor(first)
-        f2 = self.netExtractor(second)
+        with span("d4.pwcnet.extract"):
+            f1 = self.netExtractor(first)
+            f2 = self.netExtractor(second)
         est = None
         for i, level in enumerate((6, 5, 4, 3, 2)):
             est = getattr(self, _LEVEL_NAMES[level])(f1[-1 - i], f2[-1 - i],
                                                      est)
-        return est["flow"] + self.netRefiner(est["feat"])
+        with span("d4.pwcnet.refine"):
+            return est["flow"] + self.netRefiner(est["feat"])
 
 
 def correlation(f1, f2, radius: int = 4):
@@ -133,11 +139,12 @@ def correlation(f1, f2, radius: int = 4):
     holds mean_c f1[c] * f2[c] shifted by (dy - r, dx - r), zero padded.
     f1, f2: (B, C, H, W) -> (B, (2r+1)^2, H, W)."""
     H, W = f1.shape[-2:]
-    f2p = F.pad(f2, (radius, radius, radius, radius))
     n = 2 * radius + 1
-    return torch.stack([
-        torch.mean(f1 * f2p[:, :, dy : dy + H, dx : dx + W], dim=1)
-        for dy in range(n) for dx in range(n)], dim=1)
+    with span("d4.pwcnet.corr"):
+        f2p = F.pad(f2, (radius, radius, radius, radius))
+        return torch.stack([
+            torch.mean(f1 * f2p[:, :, dy : dy + H, dx : dx + W], dim=1)
+            for dy in range(n) for dx in range(n)], dim=1)
 
 
 def backwarp(x, flow):
@@ -214,10 +221,11 @@ def make_aligned_loss_fn(net: PWCNet):
         single = pred.dim() == 3
         if single:
             pred, target = pred[None], target[None]
-        with torch.no_grad():
+        with torch.no_grad(), span("d4.flow.pwcnet"):
             flow = pwcnet_flow(net, pred, target)
-        aligned, mask = backwarp(pred.permute(0, 3, 1, 2),
-                                 flow.permute(0, 3, 1, 2))
+        with span("d4.flow.warp"):
+            aligned, mask = backwarp(pred.permute(0, 3, 1, 2),
+                                     flow.permute(0, 3, 1, 2))
         aligned, mask = aligned.permute(0, 2, 3, 1), mask.permute(0, 2, 3, 1)
         return (aligned[0], mask[0]) if single else (aligned, mask)
 

@@ -25,6 +25,12 @@ loop, as the reference's single-chip path does. ``use_pallas=False``
 composites every path with the reference's plain compositors without the
 early stop (ops/rasterize.py::composite_*_nostop) instead of the kernels.
 
+With tracing on (utils/profiling.py) every render is a ``d4.render`` span
+(args: the mode) holding ``d4.render.exposure`` (the sub-frames' poses
+and the Gaussians deformed to them), ``d4.render.project``, and the
+path's ``d4.render.bin``, ``d4.render.pack`` and ``d4.render.composite``
+(the per-view path marks its own inside ops/rasterize.py::rasterize).
+
 Channel multiplexing matches the reference: [RGB(3) | mask(1)? |
 tracks(3B)? | depth(1)?] composited in one pass; blurry mask = max over
 sub-frames, blurry depth = min over sub-frames, everything else = mean.
@@ -63,6 +69,7 @@ from deblur4dgs_tpu_torch.ops.tiling import (
     packed_static_table,
 )
 from deblur4dgs_tpu_torch.parallel import mesh as pmesh
+from deblur4dgs_tpu_torch.utils.profiling import span
 
 BLUR_NUM_CAMERAS = 11  # exposure sub-frames
 
@@ -175,185 +182,205 @@ def render(
     calls render with the same arguments and gets the same outputs; their
     gradients reach every rank whole (parallel/mesh.py).
     """
-    assert not (fg_only and bg_only)
-    W, H = img_wh
-    tiles_x, tiles_y = num_tiles(img_wh)
-    if mode not in ("blury", "mid", "start", "end"):
-        raise ValueError(f"unknown render mode {mode!r}")
-    if subframe_sharding is not None and subframe_sharding.axis is None:
-        raise ValueError("subframe_sharding must split an axis, not "
-                         "replicate")
-    dev = w2c.device
+    with span("d4.render", mode=mode):
+        assert not (fg_only and bg_only)
+        W, H = img_wh
+        tiles_x, tiles_y = num_tiles(img_wh)
+        if mode not in ("blury", "mid", "start", "end"):
+            raise ValueError(f"unknown render mode {mode!r}")
+        if subframe_sharding is not None and subframe_sharding.axis is None:
+            raise ValueError("subframe_sharding must split an axis, not "
+                             "replicate")
+        dev = w2c.device
 
-    scales, opacities, colors, alive = _gather_set(scene, fg_only, bg_only)
-    N = scales.shape[0]
+        scales, opacities, colors, alive = _gather_set(scene, fg_only,
+                                                       bg_only)
+        N = scales.shape[0]
 
-    # --- exposure window ---------------------------------------------------
-    samples = exposure_samples(
-        scene.move, w2c, 0.0 if t is None else t, num_exposure, stage=stage,
-        mode="uniform" if mode == "blury" else mode, camera_mode=camera_mode,
-    )
-    S = samples.poses.shape[0]
-
-    # --- constant channel payload -----------------------------------------
-    chans = [colors]
-    layout = {"img": 3}
-    if return_mask:
-        if fg_only or bg_only:
-            maskv = torch.ones((N, 1), device=dev)
-        else:
-            maskv = torch.cat([torch.ones((scene.num_fg, 1), device=dev),
-                               torch.zeros((scene.num_bg, 1), device=dev)], 0)
-        chans.append(maskv)
-        layout["mask"] = 1
-    B = 0
-    if target_ts is not None:
-        B = target_ts.shape[0]
-        if fg_only:
-            tmeans, _ = compute_poses_fg(scene, target_ts)
-        else:
-            tmeans, _ = compute_poses_all(scene, target_ts)  # (N, B, 3)
-        if target_w2cs is not None:
-            # camera-space track targets
-            tmeans = torch.einsum(
-                "bij,nbj->nbi",
-                target_w2cs[:, :3, :],
-                torch.cat([tmeans, torch.ones_like(tmeans[..., :1])], -1),
+        # --- exposure window ---------------------------------------------
+        with span("d4.render.exposure"):
+            samples = exposure_samples(
+                scene.move, w2c, 0.0 if t is None else t, num_exposure,
+                stage=stage, mode="uniform" if mode == "blury" else mode,
+                camera_mode=camera_mode,
             )
-        chans.append(tmeans.reshape(N, B * 3))
-        layout["tracks_3d"] = B * 3
-    const_chans = torch.cat(chans, dim=-1)
-    if return_depth:
-        layout["depth"] = 1
-    D = sum(layout.values())
+        S = samples.poses.shape[0]
 
-    if isinstance(bg_color, (int, float)):
-        bgvec = torch.full((3,), float(bg_color), device=dev)
-    else:
-        bgvec = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
-    background = torch.cat([bgvec, torch.zeros((D - 3,), device=dev)])
+        # --- constant channel payload -------------------------------------
+        chans = [colors]
+        layout = {"img": 3}
+        if return_mask:
+            if fg_only or bg_only:
+                maskv = torch.ones((N, 1), device=dev)
+            else:
+                maskv = torch.cat(
+                    [torch.ones((scene.num_fg, 1), device=dev),
+                     torch.zeros((scene.num_bg, 1), device=dev)], 0)
+            chans.append(maskv)
+            layout["mask"] = 1
+        B = 0
+        if target_ts is not None:
+            B = target_ts.shape[0]
+            if fg_only:
+                tmeans, _ = compute_poses_fg(scene, target_ts)
+            else:
+                tmeans, _ = compute_poses_all(scene, target_ts)  # (N, B, 3)
+            if target_w2cs is not None:
+                # camera-space track targets
+                tmeans = torch.einsum(
+                    "bij,nbj->nbi",
+                    target_w2cs[:, :3, :],
+                    torch.cat([tmeans, torch.ones_like(tmeans[..., :1])], -1),
+                )
+            chans.append(tmeans.reshape(N, B * 3))
+            layout["tracks_3d"] = B * 3
+        const_chans = torch.cat(chans, dim=-1)
+        if return_depth:
+            layout["depth"] = 1
+        D = sum(layout.values())
 
-    # --- project every sub-frame ------------------------------------------
-    if t is None:
-        times = torch.zeros((S,), device=dev)
-    else:
-        times = samples.times
-    means_w, quats_w = _window_poses(scene, times, fg_only, bg_only)
-    # residual exposure pose applied in world space
-    means_w = lie.pose_apply(samples.poses[:, None], means_w)
-    projs = project(means_w, quats_w, scales, w2c, K, img_wh, aux_mask=alive)
-    if means2d_tap is not None:
-        projs = projs._replace(means2d=projs.means2d + means2d_tap)
+        if isinstance(bg_color, (int, float)):
+            bgvec = torch.full((3,), float(bg_color), device=dev)
+        else:
+            bgvec = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
+        background = torch.cat([bgvec, torch.zeros((D - 3,), device=dev)])
 
-    tile_overflow = torch.full((), float("nan"), device=dev)
-    if subframe_sharding is not None:
-        window_out = _composite_subframes_sharded(
-            subframe_sharding.mesh, projs, opacities, const_chans,
-            background, img_wh, cap, use_pallas, return_mask, return_depth,
-            return_exposure_stack,
-        )
-    elif (shared_exposure_binning and S > 1 and bucketed
-            and tiles_x * tiles_y >= 64):
-        # --- shared binning + count-sorted buckets ------------------------
-        rank_sorted, starts, _, raw, order = bin_gaussians_union_runs(
-            projs, img_wh, cap, max_tiles_per_gauss=max_tiles_per_gauss,
-        )
-        spec = default_bucket_spec(tiles_x * tiles_y, cap)
-        # Tile-sharded compositing needs every bucket's rows to split
-        # evenly over the ranks, each block TILE_BLOCK-aligned.
-        pad_mult = TILE_BLOCK * (
-            tile_mesh.shape[tile_axis] if tile_mesh is not None else 1)
-        buckets = bucket_tiles_from_runs(rank_sorted, starts, raw, N, spec,
-                                         pad_multiple=pad_mult)
-        # Fraction of tile-Gaussian intersections dropped by capacity
-        # truncation.
-        kept = sum(c.sum() for c in buckets.counts)
-        tile_overflow = 1.0 - kept.float() / torch.clamp(raw.sum(),
-                                                         min=1).float()
-        # Combined dyn+static payload table: one gather per bucket (and one
-        # scatter-add in the backward).
-        tbl = torch.cat(
-            [
-                packed_dyn_table(projs, order, return_depth),
-                packed_static_table(opacities, const_chans, order),
-            ],
-            dim=1,
-        )
-        Fd = 7 if return_depth else 6
-        packed_lists = [pack_window_fused(gi, tbl, S, Fd)
-                        for gi in buckets.gather_idx]
-        window_out = composite_window_buckets(
-            buckets, [p[1] for p in packed_lists], [p[0] for p in packed_lists],
-            background, img_wh,
-            include_depth=return_depth,
-            mask_channel=3 if return_mask else None,
-            use_pallas=use_pallas,
-            tile_mesh=tile_mesh, tile_axis=tile_axis,
-            stack_subframes=return_exposure_stack,
-            stack_mask=return_exposure_stack and return_mask,
-        )
-    else:
-        if shared_exposure_binning and S > 1:
-            # One sort for the window as dense tile lists; the static
-            # payload and every sub-frame's screen rows gathered once.
-            shared = bin_gaussians_union(
-                projs, img_wh, cap, max_tiles_per_gauss=max_tiles_per_gauss,
+        # --- project every sub-frame --------------------------------------
+        with span("d4.render.exposure"):  # the deformation to each one
+            if t is None:
+                times = torch.zeros((S,), device=dev)
+            else:
+                times = samples.times
+            means_w, quats_w = _window_poses(scene, times, fg_only, bg_only)
+            # residual exposure pose applied in world space
+            means_w = lie.pose_apply(samples.poses[:, None], means_w)
+        with span("d4.render.project"):
+            projs = project(means_w, quats_w, scales, w2c, K, img_wh,
+                            aux_mask=alive)
+            if means2d_tap is not None:
+                projs = projs._replace(means2d=projs.means2d + means2d_tap)
+
+        tile_overflow = torch.full((), float("nan"), device=dev)
+        if subframe_sharding is not None:
+            window_out = _composite_subframes_sharded(
+                subframe_sharding.mesh, projs, opacities, const_chans,
+                background, img_wh, cap, use_pallas, return_mask,
+                return_depth, return_exposure_stack,
             )
-            tile_overflow = 1.0 - shared[1].sum().float() / torch.clamp(
-                shared[2].sum(), min=1).float()
-            st_data = pack_static(opacities, const_chans, shared[0],
-                                  shared[3])
-            dyn_all = pack_dyn_all(projs, shared[0], shared[3], return_depth)
-
-            def composite(s):
-                return rasterize_split(
-                    st_data, dyn_all[s], shared[1], background, img_wh,
-                    include_depth=return_depth, use_pallas=use_pallas,
+        elif (shared_exposure_binning and S > 1 and bucketed
+                and tiles_x * tiles_y >= 64):
+            # --- shared binning + count-sorted buckets --------------------
+            with span("d4.render.bin"):
+                rank_sorted, starts, _, raw, order = bin_gaussians_union_runs(
+                    projs, img_wh, cap,
+                    max_tiles_per_gauss=max_tiles_per_gauss,
+                )
+                spec = default_bucket_spec(tiles_x * tiles_y, cap)
+                # Tile-sharded compositing needs every bucket's rows to
+                # split evenly over the ranks, each block TILE_BLOCK-aligned.
+                pad_mult = TILE_BLOCK * (
+                    tile_mesh.shape[tile_axis] if tile_mesh is not None
+                    else 1)
+                buckets = bucket_tiles_from_runs(rank_sorted, starts, raw, N,
+                                                 spec, pad_multiple=pad_mult)
+                # Fraction of tile-Gaussian intersections dropped by
+                # capacity truncation.
+                kept = sum(c.sum() for c in buckets.counts)
+                tile_overflow = 1.0 - kept.float() / torch.clamp(
+                    raw.sum(), min=1).float()
+            with span("d4.render.pack"):
+                # Combined dyn+static payload table: one gather per bucket
+                # (and one scatter-add in the backward).
+                tbl = torch.cat(
+                    [
+                        packed_dyn_table(projs, order, return_depth),
+                        packed_static_table(opacities, const_chans, order),
+                    ],
+                    dim=1,
+                )
+                Fd = 7 if return_depth else 6
+                packed_lists = [pack_window_fused(gi, tbl, S, Fd)
+                                for gi in buckets.gather_idx]
+            with span("d4.render.composite"):
+                window_out = composite_window_buckets(
+                    buckets, [p[1] for p in packed_lists],
+                    [p[0] for p in packed_lists], background, img_wh,
+                    include_depth=return_depth,
+                    mask_channel=3 if return_mask else None,
+                    use_pallas=use_pallas,
+                    tile_mesh=tile_mesh, tile_axis=tile_axis,
+                    stack_subframes=return_exposure_stack,
+                    stack_mask=return_exposure_stack and return_mask,
                 )
         else:
+            if shared_exposure_binning and S > 1:
+                # One sort for the window as dense tile lists; the static
+                # payload and every sub-frame's screen rows gathered once.
+                with span("d4.render.bin"):
+                    shared = bin_gaussians_union(
+                        projs, img_wh, cap,
+                        max_tiles_per_gauss=max_tiles_per_gauss,
+                    )
+                    tile_overflow = 1.0 - shared[1].sum().float() / \
+                        torch.clamp(shared[2].sum(), min=1).float()
+                with span("d4.render.pack"):
+                    st_data = pack_static(opacities, const_chans, shared[0],
+                                          shared[3])
+                    dyn_all = pack_dyn_all(projs, shared[0], shared[3],
+                                           return_depth)
 
-            def composite(s):
-                return _composite_view(
-                    Projected(*(x[s] for x in projs)), opacities,
-                    const_chans, background, img_wh, cap, use_pallas,
-                    return_depth)
+                def composite(s):
+                    with span("d4.render.composite"):
+                        return rasterize_split(
+                            st_data, dyn_all[s], shared[1], background,
+                            img_wh, include_depth=return_depth,
+                            use_pallas=use_pallas,
+                        )
+            else:
+                # rasterize marks its own bin, pack and composite spans
 
-        window_out = _accumulate_subframes(composite, S, (H, W, D), dev,
-                                           return_mask, return_depth)
+                def composite(s):
+                    return _composite_view(
+                        Projected(*(x[s] for x in projs)), opacities,
+                        const_chans, background, img_wh, cap, use_pallas,
+                        return_depth)
 
-    avg = window_out["sum_img"] / S
-    acc = window_out["sum_alpha"] / S
-    rgb_stack = window_out["rgb_stack"]
+            window_out = _accumulate_subframes(composite, S, (H, W, D), dev,
+                                               return_mask, return_depth)
 
-    out = {}
-    off = 0
-    for name, dim in layout.items():
-        x = avg[..., off : off + dim]
-        off += dim
-        if name == "mask":
-            x = window_out["max_mask"]
-        elif name == "depth":
-            x = window_out["min_depth"]
-        elif name == "tracks_3d":
-            x = x.reshape(H, W, B, 3)
-        out[name] = x
-    out["acc"] = acc[..., None]
-    out["delta_t"] = samples.delta_t
-    out["poses"] = samples.poses
-    out["times"] = samples.times
-    full_stack = rgb_stack.shape[0] == S
-    out["pred_sharp_img"] = rgb_stack[S // 2 if full_stack else 0]
-    out["exposure_imgs"] = rgb_stack if return_exposure_stack else None
-    out["exposure_alphas"] = (
-        window_out["alpha_stack"] if return_exposure_stack else None
-    )
-    out["exposure_masks"] = (
-        window_out["mask_stack"]
-        if (return_exposure_stack and return_mask) else None
-    )
-    out["radii"] = projs.radii  # (S, N) per-sub-frame screen radii
-    out["tile_overflow"] = tile_overflow
-    return out
+        avg = window_out["sum_img"] / S
+        acc = window_out["sum_alpha"] / S
+        rgb_stack = window_out["rgb_stack"]
+
+        out = {}
+        off = 0
+        for name, dim in layout.items():
+            x = avg[..., off : off + dim]
+            off += dim
+            if name == "mask":
+                x = window_out["max_mask"]
+            elif name == "depth":
+                x = window_out["min_depth"]
+            elif name == "tracks_3d":
+                x = x.reshape(H, W, B, 3)
+            out[name] = x
+        out["acc"] = acc[..., None]
+        out["delta_t"] = samples.delta_t
+        out["poses"] = samples.poses
+        out["times"] = samples.times
+        full_stack = rgb_stack.shape[0] == S
+        out["pred_sharp_img"] = rgb_stack[S // 2 if full_stack else 0]
+        out["exposure_imgs"] = rgb_stack if return_exposure_stack else None
+        out["exposure_alphas"] = (
+            window_out["alpha_stack"] if return_exposure_stack else None
+        )
+        out["exposure_masks"] = (
+            window_out["mask_stack"]
+            if (return_exposure_stack and return_mask) else None
+        )
+        out["radii"] = projs.radii  # (S, N) per-sub-frame screen radii
+        out["tile_overflow"] = tile_overflow
+        return out
 
 
 def _composite_view(proj, opacities, const_chans, background, img_wh, cap,

@@ -78,6 +78,7 @@ from deblur4dgs_tpu_torch.ops.tiling import (
     pack_and_gather,
 )
 from deblur4dgs_tpu_torch.parallel import mesh as pmesh
+from deblur4dgs_tpu_torch.utils.profiling import span
 
 ALPHA_CLAMP = 0.999
 ALPHA_CUTOFF = 1.0 / 255.0
@@ -721,10 +722,12 @@ class _Composite(torch.autograd.Function):
     def backward(ctx, gacc, gt):
         *ins, accum, tfin = ctx.saved_tensors
         _, _, bwd_cuda, bwd_plain = _COMPOSITORS[ctx.kind]
-        gacc = torch.zeros_like(accum) if gacc is None else gacc.contiguous()
-        gt = torch.zeros_like(tfin) if gt is None else gt.contiguous()
-        fn = bwd_cuda if ins[0].is_cuda else bwd_plain
-        grads = fn(*ins, accum, tfin, gacc, gt, *ctx.cfg)
+        with span("d4.composite.bwd"):
+            gacc = (torch.zeros_like(accum) if gacc is None
+                    else gacc.contiguous())
+            gt = torch.zeros_like(tfin) if gt is None else gt.contiguous()
+            fn = bwd_cuda if ins[0].is_cuda else bwd_plain
+            grads = fn(*ins, accum, tfin, gacc, gt, *ctx.cfg)
         if torch.is_tensor(grads):
             grads = (grads,)
         n_rest = len(ins) + len(ctx.cfg) - ctx.n_diff
@@ -799,16 +802,18 @@ class _CompositeScatter(torch.autograd.Function):
         *ins, accum, tfin = ctx.saved_tensors
         nb, tiles_x, nchan, depth_in_dyn = ctx.cfg
         _, _, bwd_cuda, bwd_plain = _COMPOSITORS["window_scatter"]
-        gacc = torch.zeros_like(accum) if gacc is None else gacc.contiguous()
-        gt = torch.zeros_like(tfin) if gt is None else gt.contiguous()
-        gdyns, gsts = [], []
-        for b in range(nb):
-            dyn, st, counts, sids = (ins[i * nb + b] for i in range(4))
-            fn = bwd_cuda if dyn.is_cuda else bwd_plain
-            gdyn, gst = fn(dyn, st, counts, sids, accum, tfin, gacc, gt,
-                           tiles_x, nchan, depth_in_dyn)
-            gdyns.append(gdyn)
-            gsts.append(gst)
+        with span("d4.composite.bwd"):
+            gacc = (torch.zeros_like(accum) if gacc is None
+                    else gacc.contiguous())
+            gt = torch.zeros_like(tfin) if gt is None else gt.contiguous()
+            gdyns, gsts = [], []
+            for b in range(nb):
+                dyn, st, counts, sids = (ins[i * nb + b] for i in range(4))
+                fn = bwd_cuda if dyn.is_cuda else bwd_plain
+                gdyn, gst = fn(dyn, st, counts, sids, accum, tfin, gacc, gt,
+                               tiles_x, nchan, depth_in_dyn)
+                gdyns.append(gdyn)
+                gsts.append(gst)
         return (None,) * 5 + tuple(gdyns) + tuple(gsts) + (None,) * (2 * nb)
 
 
@@ -866,11 +871,14 @@ class _CompositeIndexed(torch.autograd.Function):
     def backward(ctx, gacc, gt):
         table, idx, counts, slot_map, accum, tfin = ctx.saved_tensors
         _, _, bwd_cuda, bwd_plain = _COMPOSITORS["dense"]
-        gacc = torch.zeros_like(accum) if gacc is None else gacc.contiguous()
-        gt = torch.zeros_like(tfin) if gt is None else gt.contiguous()
-        gslot = (bwd_cuda if table.is_cuda else bwd_plain)(
-            table, idx, counts, accum, tfin, gacc, gt, *ctx.cfg)
-        return dense_table_grad(gslot, slot_map), None, None, None, None, None
+        with span("d4.composite.bwd"):
+            gacc = (torch.zeros_like(accum) if gacc is None
+                    else gacc.contiguous())
+            gt = torch.zeros_like(tfin) if gt is None else gt.contiguous()
+            gslot = (bwd_cuda if table.is_cuda else bwd_plain)(
+                table, idx, counts, accum, tfin, gacc, gt, *ctx.cfg)
+            gtable = dense_table_grad(gslot, slot_map)
+        return gtable, None, None, None, None, None
 
 
 def composite_indexed(table, idx, counts, slot_map, tiles_x, nchan):
@@ -948,19 +956,25 @@ def rasterize(
     transmittance, alpha = 1 - T_fin (H, W), binning (IndexedBinning; a
     TileBinning with use_pallas=False))."""
     nchan = channels.shape[-1]
+    with span("d4.render.bin"):  # the plain path gathers its payload here
+        binning = (bin_indexed(proj, img_wh, cap) if use_pallas else
+                   pack_and_gather(proj, opacities, channels, img_wh, cap))
     if use_pallas:
-        binning = bin_indexed(proj, img_wh, cap)
-        accum, tfin = composite_indexed(
-            dense_table(proj, opacities, channels), binning.idx,
-            binning.counts, binning.slot_map, binning.tiles_xy[0], nchan)
-    else:
-        binning = pack_and_gather(proj, opacities, channels, img_wh, cap)
-        accum, tfin = composite_dense_nostop(
-            binning.tile_data, binning.counts, binning.tiles_xy[0], nchan)
-    tiles_x, tiles_y = binning.tiles_xy
-    T = tiles_x * tiles_y  # drop TILE_BLOCK padding rows
-    img, tf = untile(accum[:T], tfin[:T], img_wh, binning.tiles_xy, nchan)
-    img = img + tf[..., None] * background[None, None, :]
+        with span("d4.render.pack"):
+            table = dense_table(proj, opacities, channels)
+    with span("d4.render.composite"):
+        if use_pallas:
+            accum, tfin = composite_indexed(
+                table, binning.idx, binning.counts, binning.slot_map,
+                binning.tiles_xy[0], nchan)
+        else:
+            accum, tfin = composite_dense_nostop(
+                binning.tile_data, binning.counts, binning.tiles_xy[0], nchan)
+        tiles_x, tiles_y = binning.tiles_xy
+        T = tiles_x * tiles_y  # drop TILE_BLOCK padding rows
+        img, tf = untile(accum[:T], tfin[:T], img_wh, binning.tiles_xy,
+                         nchan)
+        img = img + tf[..., None] * background[None, None, :]
     return img, 1.0 - tf, binning
 
 

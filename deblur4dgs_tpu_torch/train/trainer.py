@@ -20,6 +20,12 @@ dL/d(means2d) per view.
 
 Precision: make_train_step switches TF32 off for matmuls and cuDNN (the
 reference's SSIM blur and track einsums are full float32).
+
+Spans (utils/profiling.py, recorded while tracing is on): ``d4.step``
+(args: the step index) around the step, ``d4.step.static`` / ``.dynamic``
+/ ``.reg`` around each branch's forward, then ``d4.step.backward``,
+``d4.step.optimizer`` and ``d4.step.density_stats``; ``d4.loss.rgb``
+around each L1 + SSIM.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from deblur4dgs_tpu_torch.train.optimizers import (
     gate_move_pose_grads,
     make_optimizer,
 )
+from deblur4dgs_tpu_torch.utils.profiling import span
 
 class FrameBatch(NamedTuple):
     """A batch of B frames (device-resident)."""
@@ -150,12 +157,14 @@ def exposure_consistency_loss(imgs_s, masks_s, flow_fn):
 def rgb_l1_ssim(pred, gt, mask=None):
     """0.8*L1 + 0.2*(1-SSIM), optionally pre-multiplied by a mask.
     pred/gt: (B, H, W, 3); mask: (B, H, W, 1)."""
-    if mask is not None:
-        pred = pred * mask
-        gt = gt * mask
-    l1 = torch.mean(torch.abs(pred - gt))
-    ssim_val = torch.stack([L.ssim(p, g) for p, g in zip(pred, gt)]).mean()
-    return 0.8 * l1 + 0.2 * (1.0 - ssim_val)
+    with span("d4.loss.rgb"):
+        if mask is not None:
+            pred = pred * mask
+            gt = gt * mask
+        l1 = torch.mean(torch.abs(pred - gt))
+        ssim_val = torch.stack([L.ssim(p, g)
+                                for p, g in zip(pred, gt)]).mean()
+        return 0.8 * l1 + 0.2 * (1.0 - ssim_val)
 
 
 def _valid_blend(x, valid_masks):
@@ -500,60 +509,69 @@ def make_train_step(
 
     def step_fn(state: TrainState, epoch, batch_static, batch_dyn, tracks,
                 batch_reg, batch4_imgs):
-        scene = state.scene
-        S = rcfg.num_exposure
-        n_fg, n_bg = scene.num_fg, scene.num_bg
-        dev = scene.fg.means.device
-        tap_shape = {
-            "static": lambda: (batch_static.imgs.shape[0], S, n_bg, 2),
-            "dynamic": lambda: (1, S, n_fg + n_bg, 2),
-            "reg": lambda: (batch_reg.imgs.shape[0], 1, n_bg, 2),
-        }[stats_branch]()
-        tap = torch.zeros(tap_shape, device=dev, requires_grad=True)
-        taps = lambda name: tap if name == stats_branch else None
+        with span("d4.step", step=state.step):
+            scene = state.scene
+            S = rcfg.num_exposure
+            n_fg, n_bg = scene.num_fg, scene.num_bg
+            dev = scene.fg.means.device
+            tap_shape = {
+                "static": lambda: (batch_static.imgs.shape[0], S, n_bg, 2),
+                "dynamic": lambda: (1, S, n_fg + n_bg, 2),
+                "reg": lambda: (batch_reg.imgs.shape[0], 1, n_bg, 2),
+            }[stats_branch]()
+            tap = torch.zeros(tap_shape, device=dev, requires_grad=True)
+            taps = lambda name: tap if name == stats_branch else None
 
-        scene.zero_grad(set_to_none=True)
-        loss = 0.0
-        aux = {}
-        if has_static:
-            l, aux["static"] = compute_static_losses(
-                scene, batch_static, taps("static"), lcfg, rcfg, stage,
-                **shard)
-            loss = loss + l
-        if has_dynamic:
-            l, aux["dynamic"] = compute_dynamic_losses(
-                scene, batch_dyn, tracks, taps("dynamic"), lcfg, rcfg, stage,
-                epoch, num_window_frames,
-                batch4_imgs=batch4_imgs if has_batch4 else None,
-                flow_fn=flow_fn, **shard,
-            )
-            loss = loss + l
-        if has_reg:
-            l, aux["reg"] = compute_static_reg_losses(
-                scene, batch_reg, taps("reg"), lcfg, rcfg, stage, **shard)
-            loss = loss + l
-        loss.backward()
-        grads = {
-            n: (p.grad if p.grad is not None else torch.zeros_like(p))
-            for n, p in scene.named_parameters()
-        }
-        # MoveModel pose nets train only after exposure_cons_start_epoch.
-        gate = float(int(epoch) > lcfg.exposure_cons_start_epoch)
-        grads = gate_move_pose_grads(grads, gate)
-        opt_state = optimizer.update(grads, state.opt_state, scene)
-        scene.zero_grad(set_to_none=True)
+            scene.zero_grad(set_to_none=True)
+            loss = 0.0
+            aux = {}
+            if has_static:
+                with span("d4.step.static"):
+                    l, aux["static"] = compute_static_losses(
+                        scene, batch_static, taps("static"), lcfg, rcfg,
+                        stage, **shard)
+                    loss = loss + l
+            if has_dynamic:
+                with span("d4.step.dynamic"):
+                    l, aux["dynamic"] = compute_dynamic_losses(
+                        scene, batch_dyn, tracks, taps("dynamic"), lcfg,
+                        rcfg, stage, epoch, num_window_frames,
+                        batch4_imgs=batch4_imgs if has_batch4 else None,
+                        flow_fn=flow_fn, **shard,
+                    )
+                    loss = loss + l
+            if has_reg:
+                with span("d4.step.reg"):
+                    l, aux["reg"] = compute_static_reg_losses(
+                        scene, batch_reg, taps("reg"), lcfg, rcfg, stage,
+                        **shard)
+                    loss = loss + l
+            with span("d4.step.backward"):
+                loss.backward()
+            with span("d4.step.optimizer"):
+                grads = {
+                    n: (p.grad if p.grad is not None else torch.zeros_like(p))
+                    for n, p in scene.named_parameters()
+                }
+                # MoveModel pose nets train only after
+                # exposure_cons_start_epoch.
+                gate = float(int(epoch) > lcfg.exposure_cons_start_epoch)
+                grads = gate_move_pose_grads(grads, gate)
+                opt_state = optimizer.update(grads, state.opt_state, scene)
+                scene.zero_grad(set_to_none=True)
 
-        last = batch_reg if has_reg else batch_dyn if has_dynamic \
-            else batch_static
-        H, W = last.imgs.shape[1:3]
-        stats = accumulate_density_stats(
-            state.stats, tap.grad, aux[stats_branch]["radii"], (W, H),
-            0 if stats_branch == "dynamic" else n_fg,
-        )
-        aux = {b: {k: v.detach() for k, v in a.items()}
-               for b, a in aux.items()}
-        new_state = TrainState(scene=scene, opt_state=opt_state,
-                               step=state.step + 1, stats=stats)
-        return new_state, loss.detach(), aux
+            last = batch_reg if has_reg else batch_dyn if has_dynamic \
+                else batch_static
+            H, W = last.imgs.shape[1:3]
+            with span("d4.step.density_stats"):
+                stats = accumulate_density_stats(
+                    state.stats, tap.grad, aux[stats_branch]["radii"],
+                    (W, H), 0 if stats_branch == "dynamic" else n_fg,
+                )
+            aux = {b: {k: v.detach() for k, v in a.items()}
+                   for b, a in aux.items()}
+            new_state = TrainState(scene=scene, opt_state=opt_state,
+                                   step=state.step + 1, stats=stats)
+            return new_state, loss.detach(), aux
 
     return step_fn

@@ -1,44 +1,61 @@
-"""Profiling and tracing utilities: a device trace, named ranges and a
-blocking step timer.
+"""Named spans at the port's layer boundaries, for torch.profiler and NVTX.
 
-PyTorch port of deblur4dgs_tpu/utils/profiling.py (the reference has only
-wall-clock rays/s counters, trainer.py:301,351). ``device_trace`` runs
-torch.profiler over the block and writes a trace that TensorBoard's
-profiler plugin and Chrome's trace viewer read; ``annotate`` names a range
-in that trace (torch.profiler.record_function) and, on a card, in an NVTX
-range for external profilers; ``StepTimer.block_and_stop`` waits for the
-card before it reads the clock.
+The JAX package's utils/profiling.py wraps jax.profiler; the port's one
+tracing facility is ``span(name, **args)``. With tracing on, a span is a
+``torch.profiler.record_function`` range, so it sits in the same profiler
+session as CUPTI's kernel records, on one clock: every kernel, and every
+idle gap of the card, can be put down to the span the host was in. On a
+card it is also an NVTX range, for external profilers. ``args`` are the
+span's identifiers (the step index on ``d4.step``, the render mode on
+``d4.render``), passed as the record_function's argument string, which
+torch's execution trace (torch.profiler.ExecutionTraceObserver) records.
+
+Tracing is off by default. Then ``span`` returns one shared no-op context:
+it creates no profiler record, pushes no NVTX range and builds no string.
+``tracing(on=True)`` switches it for a block and restores it after;
+``D4_TRACE=1`` in the environment switches it on for the process (read at
+import). Every span name starts with ``d4.``.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
+import os
 
 import torch
 
+_on = os.environ.get("D4_TRACE", "0") != "0"
+_OFF = contextlib.nullcontext()
 
-@contextlib.contextmanager
-def device_trace(log_dir: str):
-    """Trace the enclosed block (host ops, and the card's kernels where a
-    card is present) into ``log_dir`` as ``<host>_<pid>.<time>.pt.trace.json``.
-    Yields the profiler (its ``key_averages()`` sum the block's ops)."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(
-        activities=acts,
-        on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir),
-    ) as prof:
-        yield prof
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+
+def enabled() -> bool:
+    """Whether spans are being recorded."""
+    return _on
 
 
 @contextlib.contextmanager
-def annotate(name: str):
-    """Named range that shows up in profiler timelines."""
-    with torch.profiler.record_function(name):
+def tracing(on: bool = True):
+    """Spans on (or off) inside the block; the previous setting after."""
+    global _on
+    before, _on = _on, bool(on)
+    try:
+        yield
+    finally:
+        _on = before
+
+
+def span(name: str, **args):
+    """A context marking ``name`` in traces while tracing is on, carrying
+    ``args`` as ``key=value`` pairs; the shared no-op context otherwise."""
+    if not _on:
+        return _OFF
+    return _recorded(name, ", ".join(f"{k}={v}" for k, v in args.items())
+                     or None)
+
+
+@contextlib.contextmanager
+def _recorded(name, args):
+    with torch.profiler.record_function(name, args):
         if not torch.cuda.is_available():
             yield
             return
@@ -47,43 +64,3 @@ def annotate(name: str):
             yield
         finally:
             torch.cuda.nvtx.range_pop()
-
-
-def _block(x):
-    """Wait for the card on every CUDA device that holds a tensor of x (a
-    tensor, or lists / tuples / dicts of them)."""
-    if torch.is_tensor(x):
-        if x.is_cuda:
-            torch.cuda.synchronize(x.device)
-    elif isinstance(x, dict):
-        for v in x.values():
-            _block(v)
-    elif isinstance(x, (list, tuple)):
-        for v in x:
-            _block(v)
-
-
-class StepTimer:
-    """Blocking wall-clock timer with running stats (rays/s counters)."""
-
-    def __init__(self):
-        self.times: list[float] = []
-        self._t0 = None
-
-    def __enter__(self):
-        self._t0 = time.time()
-        return self
-
-    def __exit__(self, *a):
-        self.times.append(time.time() - self._t0)
-
-    def block_and_stop(self, x):
-        _block(x)
-        self.times.append(time.time() - self._t0)
-
-    @property
-    def mean(self) -> float:
-        return sum(self.times) / max(len(self.times), 1)
-
-    def rays_per_sec(self, num_rays: int) -> float:
-        return num_rays / max(self.mean, 1e-9)
