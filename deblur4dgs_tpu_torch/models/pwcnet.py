@@ -13,6 +13,14 @@ radius-4 window, averaged over channels (correlation.py's
 kernel_Correlation_updateOutput). Only inference and the warp's input
 gradient are needed: the flow runs under ``torch.no_grad`` and the loss's
 gradient flows through the warp of the prediction alone.
+
+Every convolution runs as an FP32 matrix product and a col2im or im2col
+(``conv2d_gemm``, ``conv_transpose2d_gemm``), not through cuDNN. At the
+step's shapes (20 pairs, 1280x768 or 512x320 inside the net) cuDNN's FP32
+heuristics put some 3x3 decoder and refiner convolutions on its FFT
+tiling path, 33,000 complex GEMM launches and ~300-500 ms each on an
+H100, and which ones follows the memory free at the call. A GEMM's choice
+follows its shape alone.
 """
 
 from __future__ import annotations
@@ -42,15 +50,96 @@ def _lrelu():
     return nn.LeakyReLU(0.1)
 
 
+def conv2d_gemm(x, weight, bias, stride=1, dilation=1):
+    """F.conv2d(x, weight, bias, stride, padding=dilation * (k - 1) // 2,
+    dilation) of (B, Cin, H, W) by an odd (Cout, Cin, k, k) kernel, as FP32
+    matrix products, in one of three forms chosen by the layer's shape:
+
+    * stride > 1 (the pyramid's first layer of each level): F.unfold
+      gathers the strided patches (im2col), then one (Cout, Cin k k) x
+      (Cin k k, Ho Wo) product;
+    * dilation 1 and Cin >= 8 Cout (the decoders' narrow last layers): one
+      (Cout k k, Cin) x (Cin, H W) product of the flipped taps and the
+      pixels, then F.fold (col2im) adds each tap's plane at its offset.
+      Its intermediate is k k Cout / Cin of the input, and col2im walks
+      the whole dilated window per output, so it suits narrow, undilated
+      layers only;
+    * otherwise, k k products accumulated in one output: on the input
+      padded and flattened with row pitch Wp, the pixel (y, x) of tap
+      (dy, dx) sits at a fixed offset from y Wp + x, so each tap is a
+      (Cout, Cin) x (Cin, H Wp) product with a shifted view of the input.
+      The output lies on the Wp-wide grid; its last 2 p columns of each
+      row are dropped by the returned view."""
+    B, cin, H, W = x.shape
+    cout, _, k, _ = weight.shape
+    p = dilation * (k - 1) // 2
+    if stride != 1:
+        Ho = (H + 2 * p - dilation * (k - 1) - 1) // stride + 1
+        Wo = (W + 2 * p - dilation * (k - 1) - 1) // stride + 1
+        cols = F.unfold(x, k, dilation=dilation, padding=p, stride=stride)
+        out = torch.matmul(weight.reshape(cout, cin * k * k),
+                           cols).reshape(B, cout, Ho, Wo)
+        return out + bias[:, None, None]
+    if dilation == 1 and 8 * cout <= cin:
+        taps = weight.flip(2, 3).permute(0, 2, 3, 1).reshape(cout * k * k,
+                                                             cin)
+        z = torch.matmul(taps, x.reshape(B, cin, H * W))
+        return F.fold(z, (H, W), k, padding=p) + bias[:, None, None]
+    # one more zero row below, so that the last tap's view stays inside
+    Wp = W + 2 * p
+    flat = F.pad(x, (p, p, p, p + 1)).reshape(B, cin, -1)
+    taps = weight.permute(2, 3, 0, 1).contiguous()
+    n = H * Wp
+    out = torch.baddbmm(bias.view(1, cout, 1).expand(B, cout, n),
+                        taps[0, 0].expand(B, cout, cin), flat[:, :, :n])
+    for t in range(1, k * k):
+        off = (t // k * Wp + t % k) * dilation
+        out.baddbmm_(taps[t // k, t % k].expand(B, cout, cin),
+                     flat[:, :, off:off + n])
+    return out.view(B, cout, H, Wp)[..., :W]
+
+
+def conv_transpose2d_gemm(x, weight, bias):
+    """F.conv_transpose2d(x, weight, bias, stride=2, padding=1) of (B,
+    Cin, h, w) by a (Cin, Cout, 4, 4) kernel: the (Cout 16, Cin) product
+    with the pixels, then F.fold (col2im) scatters each pixel's 4 x 4
+    patch onto the (2h, 2w) output."""
+    B, cin, h, w = x.shape
+    cout = weight.shape[1]
+    z = torch.matmul(weight.reshape(cin, cout * 16).t(),
+                     x.reshape(B, cin, h * w))
+    out = F.fold(z, (2 * h, 2 * w), 4, stride=2, padding=1)
+    return out + bias[:, None, None]
+
+
+class _Conv(nn.Conv2d):
+    """A same-padded (or strided) 3x3 nn.Conv2d computed by conv2d_gemm;
+    its parameters, and so the checkpoint's names, are nn.Conv2d's."""
+
+    def forward(self, x):
+        return conv2d_gemm(x, self.weight, self.bias, self.stride[0],
+                           self.dilation[0])
+
+
+class _UpConv(nn.ConvTranspose2d):
+    """The decoders' 4x4 stride-2 upsampling, by conv_transpose2d_gemm."""
+
+    def __init__(self, cin, cout):
+        super().__init__(cin, cout, 4, 2, 1)
+
+    def forward(self, x):
+        return conv_transpose2d_gemm(x, self.weight, self.bias)
+
+
 class _Extractor(nn.Module):
     def __init__(self):
         super().__init__()
         names = ["netOne", "netTwo", "netThr", "netFou", "netFiv", "netSix"]
         for name, (cin, cout) in zip(names, _EXTRACTOR_DIMS):
             setattr(self, name, nn.Sequential(
-                nn.Conv2d(cin, cout, 3, 2, 1), _lrelu(),
-                nn.Conv2d(cout, cout, 3, 1, 1), _lrelu(),
-                nn.Conv2d(cout, cout, 3, 1, 1), _lrelu()))
+                _Conv(cin, cout, 3, 2, 1), _lrelu(),
+                _Conv(cout, cout, 3, 1, 1), _lrelu(),
+                _Conv(cout, cout, 3, 1, 1), _lrelu()))
         self.names = names
 
     def forward(self, x):
@@ -68,17 +157,16 @@ class _Decoder(nn.Module):
         self.span_name = f"d4.pwcnet.level{level}"
         cur = _DEC_CURRENT[level]
         if level < 6:
-            self.netUpflow = nn.ConvTranspose2d(2, 2, 4, 2, 1)
-            self.netUpfeat = nn.ConvTranspose2d(_DEC_PREV[level] + 448, 2, 4,
-                                                2, 1)
+            self.netUpflow = _UpConv(2, 2)
+            self.netUpfeat = _UpConv(_DEC_PREV[level] + 448, 2)
         for name, cin, cout in (("netOne", cur, 128),
                                 ("netTwo", cur + 128, 128),
                                 ("netThr", cur + 256, 96),
                                 ("netFou", cur + 352, 64),
                                 ("netFiv", cur + 416, 32)):
-            setattr(self, name, nn.Sequential(nn.Conv2d(cin, cout, 3, 1, 1),
+            setattr(self, name, nn.Sequential(_Conv(cin, cout, 3, 1, 1),
                                               _lrelu()))
-        self.netSix = nn.Sequential(nn.Conv2d(cur + 448, 2, 3, 1, 1))
+        self.netSix = nn.Sequential(_Conv(cur + 448, 2, 3, 1, 1))
 
     def forward(self, f1, f2, prev):
         with span(self.span_name):
@@ -101,7 +189,7 @@ class _Refiner(nn.Module):
         super().__init__()
         layers = []
         for i, (cin, cout, dil) in enumerate(_REFINER):
-            layers.append(nn.Conv2d(cin, cout, 3, 1, dil, dilation=dil))
+            layers.append(_Conv(cin, cout, 3, 1, dil, dilation=dil))
             if i < len(_REFINER) - 1:
                 layers.append(_lrelu())
         self.netMain = nn.Sequential(*layers)
@@ -205,8 +293,8 @@ def pwcnet_flow(net: PWCNet, source, target):
     s = _resize(source.permute(0, 3, 1, 2), Hp, Wp)
     t = _resize(target.permute(0, 3, 1, 2), Hp, Wp)
     flow = 20.0 * _resize(net(t, s), H, W)
-    scale = torch.tensor([W / Wp, H / Hp], device=flow.device)
-    return flow.permute(0, 2, 3, 1) * scale
+    # Python floats, not a tensor: no host-to-device copy
+    return torch.stack((flow[:, 0] * (W / Wp), flow[:, 1] * (H / Hp)), -1)
 
 
 def make_aligned_loss_fn(net: PWCNet):
